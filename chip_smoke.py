@@ -20,7 +20,8 @@ Phases (any failure exits non-zero before the last line is printed):
 3. Kernels against their plain PyTorch versions on the card, at the main
    path's shapes, with times (CUDA events), bounds and the time of one
    PyTorch call that computes the same function (``library_ms``: a CSR
-   matrix product).
+   matrix product). The transpose kernel must also give the same bits in
+   two runs; its schedule's size and build time are printed.
 4. Card against CPU: the same path at 24^3 in float64 and at 48^3 in
    float32 (where the banded kernels run) on the card and on the CPU
    (plain versions) must give the same level sizes, operator formats and
@@ -268,15 +269,18 @@ def check_kernels(H, torch, hier, fast):
             if dtype == torch.float32:
                 results[name] = rec
 
-    # kernels 3 and 4 on the level-0 P and on the largest coarse A
+    # kernels 3 and 4 on every banded P and on the largest coarse A
     coarse = [li for li in range(1, len(fast.levels))
               if isinstance(fast.levels[li].A, fastmv.BandedEll)]
     require(isinstance(fast.levels[0].P, fastmv.BandedEll),
             "level-0 P is not banded")
     require(bool(coarse), "no banded coarse A")
     big = max(coarse, key=lambda li: fast.levels[li].A.n_rows)
-    ops = [("P0", hier.levels[0].P, fast.levels[0].P),
-           (f"A{big}", hier.levels[big].A, fast.levels[big].A)]
+    ops = [(f"P{li}", hier.levels[li].P, lv.P)
+           for li, lv in enumerate(fast.levels)
+           if isinstance(lv.P, fastmv.BandedEll)]
+    # listed last: the kernels line reports the largest coarse A
+    ops.append((f"A{big}", hier.levels[big].A, fast.levels[big].A))
     for label, ell, band in ops:
         k, n_pad = band.vals_t.shape
         payload = k * n_pad * 8 + band.starts.numel() * 4
@@ -311,31 +315,60 @@ def check_kernels(H, torch, hier, fast):
         log(json.dumps(rec))
         require(rel <= 1e-6, f"banded_spmv {label}: rel err {rel}")
 
+        # kernel 4 reads the transpose schedule; the coarse A gets one here
+        # for this timing row (the solve restricts through P only)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        band_t = fastmv.with_transpose_schedule(band)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if band.t_vals is not None:
+            require(all(torch.equal(getattr(band, f), getattr(band_t, f))
+                        for f in ("t_vals", "t_rows", "t_colptr",
+                                  "t_chunks")),
+                    f"{label}: the schedule differs when built again")
+        nnz = int(band_t.t_colptr[-1])
+        sched_bytes = sum(getattr(band_t, f).numel() * 4 for f in
+                          ("t_vals", "t_rows", "t_colptr", "t_chunks"))
+        seg = band_t.t_colptr[1:] - band_t.t_colptr[:-1]
+
         def kern_t():
-            return fastmv.banded_spmv_t(band, r)
+            return fastmv.banded_spmv_t(band_t, r)
 
         def plain_t():
-            return fastmv.banded_spmv_t_plain(band.vals_t, band.lcols_t,
-                                              band.starts, r, band.n_cols,
-                                              band.B)
+            return fastmv.banded_spmv_t_plain(band_t.t_vals, band_t.t_rows,
+                                              band_t.t_colptr, r)
 
         y1, y2 = kern_t(), kern_t()
         rel_t, ab_t = rel_err(y1, plain_t(), torch)
+        rel_lib_t, _ = rel_err(y1, (csr_t @ r[:, None])[:, 0], torch)
         rerun, _ = rel_err(y2, y1, torch)
+        # the bytes the function must move whatever implements it: a value
+        # and a row (or column) index per nonzero, r read and y written
+        # once, and the pointers that delimit the columns and the chunks
+        bms_t, bby_t = bound(
+            nnz * 8 + io
+            + (band_t.t_colptr.numel() + band_t.t_chunks.numel()) * 4,
+            2.0 * nnz, "float32")
         rec_t = {"check": "banded_spmv_t", "operator": label,
-                 "shape": [k, n_pad], "max_rel_err": rel_t,
-                 "max_abs_err": ab_t, "tol": 1e-5,
-                 "run_to_run_rel": rerun,
+                 "n_rows": band.n_rows, "n_cols": band.n_cols, "nnz": nnz,
+                 "schedule_bytes": sched_bytes,
+                 "schedule_build_s": build_s,
+                 "chunks": band_t.t_chunks.numel() - 1,
+                 "longest_segment": int(seg.max()),
+                 "mean_segment": nnz / max(band.n_cols, 1),
+                 "max_rel_err": rel_t, "max_abs_err": ab_t, "tol": 1e-6,
+                 "rel_err_vs_csr": rel_lib_t, "run_to_run_rel": rerun,
                  "ms": time_ms(kern_t, torch),
                  "plain_ms": time_ms(plain_t, torch, warmup=2, reps=10),
-                 "bound_ms": bms, "bound_by": bby,
+                 "bound_ms": bms_t, "bound_by": bby_t,
                  "library_ms": time_ms(lambda: csr_t @ r[:, None], torch)}
         log(json.dumps(rec_t))
-        require(rel_t <= 1e-5, f"banded_spmv_t {label}: rel err {rel_t}")
-        require(rerun <= 1e-5, f"banded_spmv_t {label}: runs differ {rerun}")
+        require(rel_t <= 1e-6, f"banded_spmv_t {label}: rel err {rel_t}")
+        require(rerun == 0.0 and bool(torch.equal(y1, y2)),
+                f"banded_spmv_t {label}: two runs differ ({rerun})")
         for name, rc in (("banded_spmv", rec), ("banded_spmv_t", rec_t)):
-            # the kernels line reports the largest coarse A (listed last)
-            # with the largest error over both operators
+            # the largest error over all operators beside the last one's times
             prev = results.get(name)
             results[name] = rc if prev is None else dict(
                 rc, max_abs_err=max(rc["max_abs_err"], prev["max_abs_err"]))

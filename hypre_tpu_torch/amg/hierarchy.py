@@ -28,7 +28,8 @@ from hypre_tpu_torch.amg.strength import strength_mask
 from hypre_tpu_torch.core.config import resolve_device, tensors_to
 from hypre_tpu_torch.seq.dia import DiaMatrix
 from hypre_tpu_torch.seq.ell import EllMatrix
-from hypre_tpu_torch.seq.fastmv import BandedEll, banded_spmv_t, optimize_operator
+from hypre_tpu_torch.seq.fastmv import BandedEll, banded_spmv_t, \
+    optimize_operator, with_transpose_schedule
 from hypre_tpu_torch.seq.spgemm import ell_spgemm, ell_transpose
 
 
@@ -221,13 +222,10 @@ def make_smoother(relax: str, relax_weight: float, cheby_order: int,
     raise NotImplementedError(f"relax type {relax!r} is not ported yet")
 
 
-def _restrict_level(hier: AMGHierarchy, lev: Level,
-                    r: torch.Tensor) -> torch.Tensor:
+def _restrict_level(lev: Level, r: torch.Tensor) -> torch.Tensor:
     # Pt=None marks a Galerkin level whose restriction runs through P's
-    # scatter-transpose kernel (windows in the small coarse space)
+    # transpose kernel, from the schedule optimize_hierarchy built
     if lev.Pt is None:
-        return banded_spmv_t(lev.P, r)
-    if isinstance(lev.P, BandedEll) and hier.galerkin:
         return banded_spmv_t(lev.P, r)
     return lev.Pt.mv(r)
 
@@ -253,7 +251,7 @@ def amg_cycle(
         for _ in range(num_sweeps):
             u = sm(lev, u, f)
         r = f - lev.A.mv(u)
-        rc = _restrict_level(hier, lev, r)
+        rc = _restrict_level(lev, r)
         ec = torch.zeros(lev.P.vec_len_cols, dtype=f.dtype, device=f.device)
         last = level >= len(hier.levels) - 1
         if ctype == 3 and not last:
@@ -340,9 +338,10 @@ def optimize_hierarchy(
         A = spec_dia(opt(lev.A))
         P = spec_dia(opt(lev.P))
         if isinstance(P, BandedEll) and hier.galerkin:
-            # restriction runs through P's scatter transpose; Pt and the
-            # duplicate ELL payload would only cost memory
-            P = P.drop_ell()
+            # restriction runs through P's transpose kernel, from a
+            # schedule built here once; Pt and the duplicate ELL payload
+            # would only cost memory
+            P = with_transpose_schedule(P).drop_ell()
             Pt = None
         else:
             Pt = spec_dia(opt(lev.Pt))

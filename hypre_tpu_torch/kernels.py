@@ -42,8 +42,7 @@ SIGNATURES = {
     },
     "banded_spmv": {
         "hypre_banded_spmv": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
-        "hypre_banded_spmv_t": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
-                                _P],
+        "hypre_banded_spmv_t": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
     },
 }
 

@@ -11,8 +11,12 @@ the operands of
 - kernel 3, the gather ``y[r] = sum_s vals_t[s,r] * x[starts[r//B] +
   lcols_t[s,r]]`` (``csrc/banded_spmv.cu``, replacing the reference's
   ``_spmv_kernel``), which carries the coarse ``A.mv`` and ``P.mv``;
-- kernel 4, the scatter-transpose ``y = A^T r`` (replacing
-  ``_spmv_t_kernel``), which carries restriction on Galerkin levels.
+- kernel 4, the transpose product ``y = A^T r`` (replacing
+  ``_spmv_t_kernel``), which carries restriction on Galerkin levels. It
+  reads a transpose schedule that ``with_transpose_schedule`` builds once
+  per operator from the same payload: the nonzeros sorted by destination
+  column, so that every output is summed in a fixed order and written
+  once.
 
 On a CUDA tensor the wrappers launch the kernels; on a CPU tensor they run
 the plain PyTorch versions below, computed from the same operands.
@@ -30,6 +34,9 @@ from hypre_tpu_torch.core.config import tensors_to
 from hypre_tpu_torch.seq.ell import EllMatrix
 
 ALIGN = 1024  # window starts are multiples of this (kept from the reference)
+# nonzeros of the transpose schedule per thread block of kernel 4; a block
+# stages up to twice as many products in shared memory (16 KB)
+T_CHUNK = 2048
 
 
 def _wbucket(w: int) -> int:
@@ -62,6 +69,13 @@ class BandedEll:
     exact: kept for signature parity. The reference picks how x is rounded
     through bf16 on the TPU's matrix unit; the port always gathers in
     exact float32, which is the reference's ``exact=2``.
+    t_vals/t_rows/t_colptr/t_chunks/t_cap: the transpose schedule that
+    ``mv_t`` needs (``with_transpose_schedule``), None until it is built.
+    t_vals and t_rows hold the nonzeros' values and source rows sorted by
+    destination column (stable in (row, slot)), zero-padded to a multiple
+    of 4; t_colptr (n_cols + 1,) points at each column's segment; t_chunks
+    lists the first column of every thread block's chunk, which starts
+    inside one run of t_cap nonzeros and of t_cap columns.
     """
 
     ell: "EllMatrix | None"
@@ -74,6 +88,11 @@ class BandedEll:
     exact: int = 1
     n_rows_s: int = 0
     n_cols_s: int = 0
+    t_vals: "torch.Tensor | None" = None
+    t_rows: "torch.Tensor | None" = None
+    t_colptr: "torch.Tensor | None" = None
+    t_chunks: "torch.Tensor | None" = None
+    t_cap: int = 0
 
     # -- operator protocol -----------------------------------------------------
     @property
@@ -164,20 +183,21 @@ def banded_spmv_plain(vals_t, lcols_t, starts, x, n_rows: int,
     return y[:n_rows]
 
 
-def banded_spmv_t_plain(vals_t, lcols_t, starts, r, n_out: int,
-                        B: int) -> torch.Tensor:
-    """Plain version of the scatter-transpose kernel: every nonzero slot
-    adds vals_t[s,row] * r[row] at its window column."""
-    k, n_pad = vals_t.shape
-    n_rows = r.shape[0]
-    base = _row_base(starts, B, n_pad)[:n_rows]
-    y = torch.zeros(n_out, dtype=r.dtype, device=r.device)
-    for s in range(k):
-        v = vals_t[s, :n_rows]
-        j = base + lcols_t[s, :n_rows].to(torch.int64)
-        keep = (v != 0) & (j >= 0) & (j < n_out)
-        y.index_add_(0, j[keep], (v * r)[keep])
-    return y
+def banded_spmv_t_plain(t_vals, t_rows, t_colptr, r) -> torch.Tensor:
+    """Plain version of the transpose kernel, from the same schedule: the
+    products in destination order, each column's segment summed by
+    ``torch.segment_reduce`` (left to right on the CPU; in its own fixed
+    order on the card). Columns without a nonzero give 0."""
+    n_out = t_colptr.shape[0] - 1
+    n_slots = t_vals.shape[0]
+    if n_slots == 0 or n_out == 0:
+        return torch.zeros(n_out, dtype=r.dtype, device=r.device)
+    prod = t_vals * r[t_rows.to(torch.int64)]
+    # the padding behind the last nonzero goes into one more segment
+    offsets = torch.cat([t_colptr.to(torch.int64),
+                         t_colptr.new_full((1,), n_slots, dtype=torch.int64)])
+    return torch.segment_reduce(prod, "sum", offsets=offsets,
+                                unsafe=True)[:n_out]
 
 
 def _check_banded(A: BandedEll, vec: torch.Tensor, n_vec: int, name: str):
@@ -190,6 +210,28 @@ def _check_banded(A: BandedEll, vec: torch.Tensor, n_vec: int, name: str):
     if n_pad % A.B or A.n_rows > n_pad:
         raise ValueError(f"payload width {n_pad} does not fit B={A.B}, "
                          f"n_rows={A.n_rows}")
+
+
+def _check_schedule(A: BandedEll, r: torch.Tensor):
+    dev = r.device
+    n_slots = A.t_vals.shape[0]
+    kernels.require(r, "r", torch.float32, (A.n_rows,), dev)
+    kernels.require(A.t_vals, "t_vals", torch.float32, (n_slots,), dev)
+    kernels.require(A.t_rows, "t_rows", torch.int32, (n_slots,), dev)
+    kernels.require(A.t_colptr, "t_colptr", torch.int32, (A.n_cols + 1,),
+                    dev)
+    kernels.require(A.t_chunks, "t_chunks", torch.int32,
+                    (A.t_chunks.shape[0],), dev)
+    if n_slots % 4 or A.t_vals.data_ptr() % 16 or A.t_rows.data_ptr() % 16:
+        raise ValueError("t_vals and t_rows must be 16-byte aligned and "
+                         "padded to a multiple of 4 entries")
+    # the kernel stages 2 * t_cap products in shared memory, of which a
+    # block gets 48 KB without asking for more
+    if A.t_cap < 8 or A.t_cap % 4 or 2 * A.t_cap * 4 > 48 * 1024:
+        raise ValueError(f"t_cap={A.t_cap} is not a multiple of 4 in "
+                         "[8, 6144]")
+    if A.t_chunks.shape[0] < 2:
+        raise ValueError("t_chunks must hold at least one chunk")
 
 
 def banded_spmv(A: BandedEll, x: torch.Tensor) -> torch.Tensor:
@@ -214,22 +256,27 @@ def banded_spmv(A: BandedEll, x: torch.Tensor) -> torch.Tensor:
 
 
 def banded_spmv_t(A: BandedEll, r: torch.Tensor) -> torch.Tensor:
-    """y = A.T @ r, reusing A's forward window schedule (A's columns are
-    the transpose's rows): the kernel that replaces
+    """y = A.T @ r from A's transpose schedule: the kernel that replaces
     ``hypre_tpu/seq/fastmv.py::_spmv_t_kernel`` on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor. Every output is summed in a fixed order, so
+    two calls give the same bits. Raises if the schedule was not built."""
     if r.shape[0] != A.n_rows:
         raise ValueError(f"shape mismatch: {A.shape[::-1]} @ {tuple(r.shape)}")
+    if A.t_vals is None:
+        raise ValueError(
+            "this BandedEll has no transpose schedule: build it once with "
+            "fastmv.with_transpose_schedule(band) before calling mv_t "
+            "(optimize_hierarchy does so for every P it restricts through)"
+        )
     if not r.is_cuda:
-        return banded_spmv_t_plain(A.vals_t, A.lcols_t, A.starts, r, A.n_cols,
-                                   A.B)
-    _check_banded(A, r, A.n_rows, "r")
-    k, n_pad = A.vals_t.shape
-    y = torch.zeros(A.n_cols, dtype=torch.float32, device=r.device)
+        return banded_spmv_t_plain(A.t_vals, A.t_rows, A.t_colptr, r)
+    _check_schedule(A, r)
+    # the kernel writes every column, those without a nonzero too
+    y = torch.empty(A.n_cols, dtype=torch.float32, device=r.device)
     err = kernels.library("banded_spmv").hypre_banded_spmv_t(
-        A.vals_t.data_ptr(), A.lcols_t.data_ptr(), A.starts.data_ptr(),
-        r.data_ptr(), y.data_ptr(), n_pad, A.n_rows, A.n_cols, k, A.B,
-        kernels.stream_of(r))
+        A.t_vals.data_ptr(), A.t_rows.data_ptr(), A.t_colptr.data_ptr(),
+        A.t_chunks.data_ptr(), r.data_ptr(), y.data_ptr(),
+        A.t_chunks.shape[0] - 1, A.t_cap, kernels.stream_of(r))
     kernels.check(err, "banded_spmv_t")
     kernels.LAUNCHES["banded_spmv_t"] += 1
     return y
@@ -314,6 +361,48 @@ def try_banded(
         n_xpad=_xpad_bucket(max(lomax + W, A.n_cols)), exact=exact,
         n_rows_s=A.n_rows, n_cols_s=A.n_cols,
     )
+
+
+def with_transpose_schedule(band: BandedEll,
+                            cap: int = T_CHUNK) -> BandedEll:
+    """``band`` with the schedule that ``mv_t`` reads, built once from the
+    forward payload on the payload's device.
+
+    The nonzero slots, taken in (row, slot) order, are sorted by their
+    global destination column with a stable integer sort, so the card and
+    the CPU build the same schedule. Slots with value 0 (padding) are
+    dropped: the schedule holds 8 bytes per nonzero. Chunks are cut on
+    column boundaries wherever the running nonzero count or the column
+    index passes a multiple of ``cap``; no sum crosses a chunk. A column
+    longer than ``cap`` ends its chunk and is summed by the whole block.
+    """
+    k, n_pad = band.vals_t.shape
+    n, m = band.n_rows, band.n_cols
+    dev = band.vals_t.device
+    vals = band.vals_t[:, :n].T
+    dest = (_row_base(band.starts, band.B, n_pad)[:n, None]
+            + band.lcols_t[:, :n].T.to(torch.int64))
+    keep = (vals != 0) & (dest >= 0) & (dest < m)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)[:, None] \
+        .expand(n, k)[keep]
+    dest, order = torch.sort(dest[keep], stable=True)
+    nnz = int(dest.shape[0])
+    n_slots = -(-nnz // 4) * 4
+    t_vals = torch.zeros(n_slots, dtype=band.vals_t.dtype, device=dev)
+    t_rows = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+    t_vals[:nnz] = vals[keep][order]
+    t_rows[:nnz] = rows[order]
+    colptr = torch.zeros(m + 1, dtype=torch.int64, device=dev)
+    colptr[1:] = torch.cumsum(torch.bincount(dest, minlength=m), 0)
+    run = torch.stack([colptr[:-1] // cap,
+                       torch.arange(m, device=dev) // cap])
+    cut = (run[:, 1:] != run[:, :-1]).any(dim=0)
+    firsts = torch.nonzero(cut)[:, 0] + 1
+    chunks = torch.cat([firsts.new_zeros(1), firsts, firsts.new_full((1,), m)])
+    return dataclasses.replace(
+        band, t_vals=t_vals, t_rows=t_rows,
+        t_colptr=colptr.to(torch.int32), t_chunks=chunks.to(torch.int32),
+        t_cap=cap)
 
 
 # below this many stored elements an operator stays a plain ELL matrix,

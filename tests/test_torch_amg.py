@@ -89,13 +89,14 @@ def test_setup_matches_reference(problems, name):
 def force_banded(hier):
     """Every coarse A and every P in the banded format (float64 included,
     which try_banded itself declines), restriction through P's
-    transpose."""
+    transpose schedule."""
     def banded(M):
         n_pad = -(-M.n_rows // 1024) * 1024
         vt, lt, lo, sc = fastmv._banded_sched_payload(M.vals, M.cols, 1024,
                                                        n_pad)
         wmax, lomax = (int(v) for v in sc.tolist())
-        return fastmv.banded_from_sched(M, vt, lt, lo, wmax, lomax).drop_ell()
+        band = fastmv.banded_from_sched(M, vt, lt, lo, wmax, lomax)
+        return fastmv.with_transpose_schedule(band).drop_ell()
 
     levels = []
     for i, lv in enumerate(hier.levels):
@@ -144,6 +145,39 @@ def test_amg_pcg_matches_reference(problems):
     assert int(tinfo.iterations) == int(jinfo.iterations)
     assert rel_close(tx, jx, 1e-8)
     assert float(tinfo.relative_residual) <= 1e-10
+
+
+def test_optimized_hierarchy_restricts_through_transpose_schedule(
+        monkeypatch):
+    """With every operator large enough to go banded, optimize_hierarchy
+    drops Pt and gives each such P its transpose schedule; the V-cycle and
+    PCG then agree with the same hierarchy left in ELL."""
+    monkeypatch.setattr(fastmv, "MIN_BANDED_ELEMENTS", 0)
+    tA = H.laplacian_3d_7pt(16, 16, 16, dtype=torch.float32, device="cpu")
+    th = H.setup_hierarchy(tA, device="cpu", **SETUP)
+    fast = H.optimize_hierarchy(th, prefer_pallas=True, device="cpu")
+    through_p = [lv for lv in fast.levels if lv.Pt is None]
+    assert len(through_p) == len(fast.levels) >= 2
+    for lv in through_p:
+        assert isinstance(lv.P, fastmv.BandedEll) and lv.P.ell is None
+        assert lv.P.t_vals is not None and lv.P.t_cap == fastmv.T_CHUNK
+    sm = H.make_smoother("chebyshev", 1.0, 2, 0.3)
+    b = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        tA.n_rows).astype(np.float32))
+    launches = dict(kernels.LAUNCHES)
+    cyc_fast = H.amg_cycle(fast, b, smoother=sm)
+    cyc_ell = H.amg_cycle(th, b, smoother=sm)
+    # float32, sums in another order
+    assert rel_close(cyc_fast, cyc_ell, 1e-5)
+    its = []
+    for hier in (fast, th):
+        _, info = H.pcg(hier.levels[0].A.mv, b,
+                        M=lambda r, h=hier: H.amg_cycle(h, r, smoother=sm),
+                        rtol=1e-5, device="cpu")
+        assert bool(info.converged)
+        its.append(int(info.iterations))
+    assert its[0] == its[1]
+    assert kernels.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(two_norm=False),

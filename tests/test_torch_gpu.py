@@ -73,13 +73,62 @@ def test_banded_kernels_match_plain_on_card():
     ref = fastmv.banded_spmv_plain(tb.vals_t, tb.lcols_t, tb.starts, x,
                                    tb.n_rows, tb.B)
     assert torch.equal(y, ref)  # same order, no fused multiply-add
+    with pytest.raises(ValueError, match="with_transpose_schedule"):
+        fastmv.banded_spmv_t(tb, r)  # never a silent build, never atomics
+    tb = fastmv.with_transpose_schedule(tb)
+    before = kernels.LAUNCHES["banded_spmv_t"]
     yt = fastmv.banded_spmv_t(tb, r)
-    ref_t = fastmv.banded_spmv_t_plain(tb.vals_t, tb.lcols_t, tb.starts, r,
-                                       tb.n_cols, tb.B)
-    # atomics add in a run-dependent order
-    assert float((yt - ref_t).abs().max()) <= 1e-5 * float(ref_t.abs().max())
+    yt2 = fastmv.banded_spmv_t(tb, r)
+    assert kernels.LAUNCHES["banded_spmv_t"] == before + 2
+    ref_t = fastmv.banded_spmv_t_plain(tb.t_vals, tb.t_rows, tb.t_colptr, r)
+    # both sum every segment in a fixed order, but not in the same one: a
+    # few float32 roundings apart
+    assert float((yt - ref_t).abs().max()) <= 1e-6 * float(ref_t.abs().max())
+    assert torch.equal(yt, yt2)  # fixed order: the same bits every run
+    # the schedule is the same on the card and on the CPU
+    on_cpu = fastmv.with_transpose_schedule(fastmv.try_banded(
+        ell_from_numpy(vals, cols, 16000, device="cpu")))
+    for name in ("t_vals", "t_rows", "t_colptr", "t_chunks"):
+        assert torch.equal(getattr(tb, name).cpu(), getattr(on_cpu, name))
     with pytest.raises(ValueError):
         fastmv.banded_spmv(tb, x.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,k,m,long_col", [
+    (2048, 4, 16000, None),   # segments of ~9: one thread per column
+    (2048, 40, 3000, None),   # segments of ~400: 16 lanes per column
+    (512, 40, 300, None),     # segments of ~4000, longer than a chunk
+    (2048, 4, 16000, 30000),  # one dense column: the block-wide sum
+    (8, 3, 50000, None),      # the smallest chunks
+])
+def test_transpose_kernel_segment_paths_on_card(cap, k, m, long_col):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(cap + k)
+    n = 50000
+    vals, cols = banded_matrix(rng, n, m, k, max(m // 20, 4))
+    if long_col:
+        rows = rng.choice(n, long_col, replace=False)
+        cols[rows, 0] = m // 2
+        vals[rows, 0] = rng.standard_normal(long_col).astype(np.float32)
+    tb = fastmv.with_transpose_schedule(
+        fastmv.try_banded(ell_from_numpy(vals, cols, m, device="cuda"),
+                          max_window=1 << 30), cap=cap)
+    r = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    yt, yt2 = fastmv.banded_spmv_t(tb, r), fastmv.banded_spmv_t(tb, r)
+    torch.cuda.synchronize()
+    assert torch.equal(yt, yt2)
+    # against float64: the plain version adds long segments left to right
+    # in float32 and is the less exact of the two there
+    prod = tb.t_vals.double() * r.double()[tb.t_rows.long()]
+    ref = torch.zeros(m, dtype=torch.float64, device="cuda").index_add_(
+        0, torch.repeat_interleave(
+            torch.arange(m, device="cuda"),
+            (tb.t_colptr[1:] - tb.t_colptr[:-1]).long()),
+        prod[:int(tb.t_colptr[-1])])
+    assert float((yt.double() - ref).abs().max()) <= \
+        2e-6 * float(ref.abs().max())
 
 
 @pytest.mark.gpu
