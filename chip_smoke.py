@@ -17,16 +17,30 @@ Phases (any failure exits non-zero before the last line is printed):
    iterations, the two paths must take the same number of iterations, and
    the true relative residual must stay under TRUE_RESIDUAL_LIMIT (the
    float32 floor, below).
-3. Kernels against their plain PyTorch versions on the card, at the main
-   path's shapes, with times (CUDA events), bounds and the time of one
+3. The device-setup path at 128^3, float32: ``setup_hierarchy_device``
+   with the reference bench's arguments (aggressive PMIS on the first
+   level, multipass interpolation, slab RAP with a 0.02 drop tolerance,
+   Chebyshev, max_coarse_size=1500), once with ``transfer_dia=True`` (the
+   stencil level's interpolation stored as fine-space diagonals, D = 64)
+   and once with ``transfer_dia=False`` (the same P as a banded operator
+   with a transpose schedule); each optimized and solved with the dynamic
+   and with the static DIA kernel. All four solves must converge within
+   BENCH_ITERATION_LIMIT iterations, take the same number of them, and
+   launch the DIA kernel 8 (TransferDia) or 6 (banded P) times per PCG
+   iteration.
+4. Kernels against their plain PyTorch versions on the card, at both
+   paths' shapes, with times (CUDA events), bounds and the time of one
    PyTorch call that computes the same function (``library_ms``: a CSR
    matrix product). The transpose kernel must also give the same bits in
-   two runs; its schedule's size and build time are printed.
-4. Card against CPU: the same path at 24^3 in float64 and at 48^3 in
-   float32 (where the banded kernels run) on the card and on the CPU
-   (plain versions) must give the same level sizes, operator formats and
-   PCG iteration count.
-5. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   two runs; its schedule's size and build time are printed. The whole
+   level-0 transfer is timed both ways (TransferDia, banded, CSR).
+5. Card against CPU: the pure-setup path at 24^3 in float64 and at 48^3 in
+   float32 (where the banded kernels run), and the device setup with
+   ``agg_num_levels=1`` at the same two sizes, on the card and on the CPU
+   (plain versions) must give the same level sizes, C-point counts,
+   operator formats and PCG iteration count. Two device setups on the
+   card at 48^3 must agree in every tensor, bit for bit.
+6. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -64,6 +78,12 @@ N_PARITY_BANDED = 48
 SETUP_KW = dict(setup_backend="jax", coarsen="pmis", interp="ext+i",
                 p_max_elmts=4, relax="chebyshev", agg_num_levels=0,
                 max_coarse_size=1500)
+# The reference bench's own hierarchy (bench.py): setup_hierarchy_device
+# with these arguments, transfer_dia True or False, width_plan a fresh dict.
+BENCH_KW = dict(max_coarse_size=1500, relax="chebyshev", agg_num_levels=1,
+                coarse_drop_tol=0.02)
+# All four 128^3 solves of that hierarchy take 14 iterations on the H100.
+BENCH_ITERATION_LIMIT = 17
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -181,6 +201,142 @@ def run_main_path(H, kernels, torch, specialize: bool, hier=None):
     return hier, fast, launches, record["iterations"]
 
 
+def padded_ones(fast, n: int, torch, dtype, device):
+    """b = ones on the n true rows, zeros on the empty rows that a
+    row-bucketed hierarchy appends (none at 128^3, a bucket itself): the
+    solve then runs on the padded fine operator and x stays 0 there."""
+    b = torch.zeros(fast.levels[0].A.n_rows, dtype=dtype, device=device)
+    b[:n] = 1.0
+    return b
+
+
+def tensors_of(obj, torch, prefix=""):
+    """(path, tensor) for every tensor held by a hierarchy, its levels and
+    their operators (dataclasses and lists, recursively)."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        yield prefix, obj
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from tensors_of(v, torch, f"{prefix}[{i}]")
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from tensors_of(getattr(obj, f.name), torch,
+                                  f"{prefix}.{f.name}")
+
+
+def describe_formats(fast):
+    return [[type(lv.A).__name__, type(lv.P).__name__,
+             "P.mv_t" if lv.Pt is None else type(lv.Pt).__name__]
+            for lv in fast.levels]
+
+
+def run_bench_path(H, kernels, torch, transfer_dia: bool):
+    """The reference bench's configuration on the card: device setup, then
+    optimize + PCG with the dynamic and with the static DIA kernel.
+    Returns (hier, {specialize: fast}, {specialize: launches},
+    iterations)."""
+    from hypre_tpu_torch.seq.fastmv import BandedEll
+
+    tag = "transfer_dia" if transfer_dia else "banded_p"
+    A = H.laplacian_3d_7pt(N_MAIN, N_MAIN, N_MAIN, dtype=torch.float32,
+                           device="cuda")
+    A64 = H.laplacian_3d_7pt(N_MAIN, N_MAIN, N_MAIN, dtype=torch.float64,
+                             device="cuda")
+    n = A.n_rows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    width_plan = {}
+    t0 = time.perf_counter()
+    hier = H.setup_hierarchy_device(A, width_plan=width_plan,
+                                    transfer_dia=transfer_dia, **BENCH_KW)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    P0 = hier.levels[0].P
+    record = {
+        "bench_path": tag, "n": A.n_rows,
+        "true_levels": list(hier.n_level_true),
+        "bucketed_levels": level_sizes(hier),
+        "k": [[lv.A.k, getattr(lv.P, "k", None),
+               None if lv.Pt is None else lv.Pt.k] for lv in hier.levels],
+        "setup_s": setup_s, "setup_peak_bytes": peak,
+        "width_plan": {f"{k[0]}.{k[1]}": v for k, v in width_plan.items()},
+    }
+    if transfer_dia:
+        require(isinstance(P0, H.TransferDia) and hier.levels[0].Pt is None,
+                "level 0 does not hold a TransferDia with Pt=None")
+        record["transfer_dia"] = {
+            "D": P0.P_dia.D,
+            "distinct_offsets": len(set(P0.P_dia.offsets.cpu().tolist())),
+            "expand": [P0.expand.B, P0.expand.W, P0.expand.n_xpad],
+            "compress": [P0.compress.B, P0.compress.W, P0.compress.n_xpad]}
+    log(json.dumps(record))
+
+    fasts, launches, iters = {}, {}, {}
+    for specialize in (False, True):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fast = H.optimize_hierarchy(hier, gather_precision=0,
+                                    specialize=specialize)
+        torch.cuda.synchronize()
+        optimize_s = time.perf_counter() - t0
+        b = padded_ones(fast, n, torch, torch.float32, "cuda")
+        t0 = time.perf_counter()
+        x, info = solve(H, fast, fast.levels[0].A, b, None, 1e-6)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches[specialize] = dict(kernels.LAUNCHES)
+        true_rel = float(torch.linalg.vector_norm(
+            b[:n].double() - A64.mv(x[:n].double()))
+            / torch.linalg.vector_norm(b.double()))
+        rec = {"bench_path": tag,
+               "solve": "specialized" if specialize else "dynamic",
+               "formats": describe_formats(fast),
+               "optimize_s": optimize_s, "solve_s": solve_s,
+               "iterations": int(info.iterations),
+               "converged": bool(info.converged),
+               "relative_residual": float(info.relative_residual),
+               "true_relative_residual": true_rel,
+               "launches": launches[specialize]}
+        log(json.dumps(rec))
+        what = f"{tag} {rec['solve']} solve"
+        require(bool(info.converged), f"{what} did not converge")
+        require(bool(torch.isfinite(x).all()), f"{what}: non-finite solution")
+        require(true_rel <= TRUE_RESIDUAL_LIMIT,
+                f"{what}: true relative residual {true_rel} > "
+                f"{TRUE_RESIDUAL_LIMIT}")
+        require(rec["iterations"] <= BENCH_ITERATION_LIMIT,
+                f"{what}: {rec['iterations']} iterations > "
+                f"{BENCH_ITERATION_LIMIT}")
+        P0f = fast.levels[0].P
+        if transfer_dia:
+            require(isinstance(P0f, H.TransferDia)
+                    and fast.levels[0].Pt is None,
+                    f"{what}: level-0 P is not a TransferDia")
+        else:
+            require(isinstance(P0f, BandedEll) and P0f.t_vals is not None
+                    and fast.levels[0].Pt is None,
+                    f"{what}: level-0 P is not banded with a schedule")
+        dia_name = "dia_spmv_static" if specialize else "dia_spmv"
+        other = "dia_spmv" if specialize else "dia_spmv_static"
+        per_it = per_iteration_launches(H, kernels, torch, fast)
+        want = 8 if transfer_dia else 6  # 6 for the level-0 A, 2 transfers
+        require(per_it[dia_name] == want and per_it[other] == 0,
+                f"{what}: {per_it[dia_name]} {dia_name} launches per "
+                f"iteration, expected {want}")
+        for name in (dia_name, "banded_spmv", "banded_spmv_t"):
+            require(launches[specialize][name] > 0,
+                    f"{what} never launched {name}")
+        fasts[specialize], iters[specialize] = fast, rec["iterations"]
+    require(iters[False] == iters[True],
+            f"{tag}: dynamic ({iters[False]}) and specialized "
+            f"({iters[True]}) solves took different iteration counts")
+    return hier, fasts, launches, iters[True]
+
+
 def per_iteration_launches(H, kernels, torch, fast):
     """Launches of one PCG iteration (one A.mv and one V-cycle), counted,
     beside the per-level tally the cycle's structure predicts."""
@@ -198,8 +354,9 @@ def per_iteration_launches(H, kernels, torch, fast):
         per_level.append({
             "level": li, "A": type(lv.A).__name__, "A_mv": a_mvs,
             "P": type(lv.P).__name__, "P_mv": 1,
-            "restrict": "banded_spmv_t" if lv.Pt is None else
-            type(lv.Pt).__name__,
+            "restrict": type(lv.Pt).__name__ if lv.Pt is not None else
+            "TransferDia.mv_t" if isinstance(lv.P, H.TransferDia) else
+            "banded_spmv_t",
         })
     log(json.dumps({"launches_per_pcg_iteration": counted,
                     "per_level": per_level}))
@@ -375,6 +532,140 @@ def check_kernels(H, torch, hier, fast):
     return results
 
 
+def csr_of_dia(D, torch):
+    """torch CSR tensor of a DiaMatrix's nonzeros (yardstick only)."""
+    warnings.filterwarnings("ignore", message="Sparse")
+    d, rows = torch.nonzero(D.dvals, as_tuple=True)
+    cols = rows + D.offsets.long()[d]
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                  D.dvals[d, rows], size=D.shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def check_transfer_kernels(H, torch, T, T_static, hier_banded,
+                           fast_banded):
+    """Kernels 1 and 2 at D = 64 (P_dia, Pt_dia) and kernel 3 on the k = 1
+    selections of the bench's TransferDia (``T``; ``T_static`` is its
+    specialized twin), then the whole level-0 transfer both ways:
+    TransferDia against the banded route for the same P (kernel
+    3 forward, kernel 4 back) and against one CSR product."""
+    from hypre_tpu_torch.seq import dia as dia_mod
+    from hypre_tpu_torch.seq import fastmv
+    from hypre_tpu_torch.seq.spgemm import ell_transpose
+
+    rng = np.random.default_rng(1)
+    out = {"dia_spmv": [], "dia_spmv_static": [], "banded_spmv": []}
+    n = T.n_rows
+    for label, M in (("P_dia", T.P_dia), ("Pt_dia", T.Pt_dia)):
+        D = M.D
+        require(D == 64, f"{label} has D = {D}, expected 64")
+        csr = csr_of_dia(M, torch)
+        nnz = int(csr.values().numel())
+        offs_static = tuple(int(o) for o in M.offsets.cpu().tolist())
+        x = torch.from_numpy(rng.standard_normal(n)).to("cuda",
+                                                        torch.float32)
+        bms, bby = bound(D * n * 4 + 2 * n * 4 + D * 4, 2.0 * D * n,
+                         "float32")
+        lib = (csr @ x[:, None])[:, 0]
+        lib_ms = time_ms(lambda: csr @ x[:, None], torch)
+        for name, kern, plain in (
+            ("dia_spmv",
+             lambda: dia_mod.dia_spmv(M.dvals, M.offsets, x, n, M.margin),
+             lambda: dia_mod.dia_spmv_plain(M.dvals, M.offsets, x,
+                                            M.margin)),
+            ("dia_spmv_static",
+             lambda: dia_mod.dia_spmv_static(M.dvals, offs_static, x, n),
+             lambda: dia_mod.dia_spmv_static_plain(M.dvals, offs_static, x)),
+        ):
+            rel, ab = rel_err(kern(), plain(), torch)
+            rel_lib, _ = rel_err(kern(), lib, torch)
+            rec = {"check": name, "operator": label, "shape": [D, n],
+                   "nnz": nnz, "max_rel_err": rel, "max_abs_err": ab,
+                   "tol": 1e-6, "rel_err_vs_csr": rel_lib,
+                   "ms": time_ms(kern, torch),
+                   "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+                   "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms}
+            log(json.dumps(rec))
+            require(rel <= 1e-6, f"{name} {label}: rel err {rel}")
+            require(rel_lib <= 1e-5, f"{name} {label}: rel err {rel_lib} "
+                    "against the CSR product")
+            out[name].append(rec)
+
+    for label, sel in (("expand", T.expand), ("compress", T.compress)):
+        k, n_pad = sel.vals_t.shape
+        require(k == 1, f"{label} has k = {k}")
+        csr = csr_of(sel.ell, torch)
+        x = torch.from_numpy(rng.standard_normal(sel.n_cols)) \
+            .to("cuda", torch.float32)
+        bms, bby = bound(n_pad * 8 + sel.starts.numel() * 4
+                         + (sel.n_cols + sel.n_rows) * 4,
+                         2.0 * sel.n_rows, "float32")
+
+        def kern():
+            return fastmv.banded_spmv(sel, x)
+
+        def plain():
+            return fastmv.banded_spmv_plain(sel.vals_t, sel.lcols_t,
+                                            sel.starts, x, sel.n_rows, sel.B)
+
+        rel, ab = rel_err(kern(), plain(), torch)
+        rel_lib, _ = rel_err(kern(), (csr @ x[:, None])[:, 0], torch)
+        rec = {"check": "banded_spmv", "operator": label,
+               "shape": [k, n_pad], "B": sel.B, "n_rows": sel.n_rows,
+               "n_cols": sel.n_cols, "max_rel_err": rel, "max_abs_err": ab,
+               "tol": 0.0, "rel_err_vs_csr": rel_lib,
+               "ms": time_ms(kern, torch),
+               "plain_ms": time_ms(plain, torch, warmup=2, reps=10),
+               "bound_ms": bms, "bound_by": bby,
+               "library_ms": time_ms(lambda: csr @ x[:, None], torch)}
+        log(json.dumps(rec))
+        require(ab == 0.0, f"banded_spmv {label}: differs from the plain "
+                f"version by {ab}")
+        require(rel_lib == 0.0, f"banded_spmv {label}: differs from the "
+                "CSR product")
+        out["banded_spmv"].append(rec)
+
+    # the whole level-0 transfer, both ways, by three routes
+    P_ell = hier_banded.levels[0].P
+    P_band = fast_banded.levels[0].P
+    require(isinstance(P_band, fastmv.BandedEll)
+            and P_band.t_vals is not None, "banded level-0 P has no schedule")
+    csr = csr_of(P_ell, torch)
+    csr_t = csr_of(ell_transpose(P_ell), torch)
+    ec = torch.from_numpy(rng.standard_normal(T.n_cols)) \
+        .to("cuda", torch.float32)
+    r = torch.from_numpy(rng.standard_normal(n)).to("cuda", torch.float32)
+    up_ref = (csr @ ec[:, None])[:, 0]
+    down_ref = (csr_t @ r[:, None])[:, 0]
+    routes = {
+        "prolong": {
+            "transfer_dia_dynamic": lambda: T.mv(ec),
+            "transfer_dia_static": lambda: T_static.mv(ec),
+            "banded": lambda: P_band.mv(ec),
+            "csr": lambda: csr @ ec[:, None]},
+        "restrict": {
+            "transfer_dia_dynamic": lambda: T.mv_t(r),
+            "transfer_dia_static": lambda: T_static.mv_t(r),
+            "banded": lambda: fastmv.banded_spmv_t(P_band, r),
+            "csr": lambda: csr_t @ r[:, None]},
+    }
+    rec = {"transfer": "level-0 P", "shape": list(P_ell.shape),
+           "nnz": int((P_ell.cols >= 0).sum()),
+           "bytes": {"transfer_dia": 2 * T.P_dia.dvals.numel() * 4,
+                     "banded_payload": P_band.vals_t.numel() * 8,
+                     "banded_schedule": P_band.t_vals.numel() * 8}}
+    for way, ref in (("prolong", up_ref), ("restrict", down_ref)):
+        for name, fn in routes[way].items():
+            got = fn()
+            got = got[:, 0] if got.ndim == 2 else got
+            rel, _ = rel_err(got, ref, torch)
+            require(rel <= 1e-5, f"{way} by {name}: rel err {rel} against "
+                    "the CSR product")
+            rec[f"{way}_{name}_ms"] = time_ms(fn, torch)
+    log(json.dumps(rec))
+    return out, rec
+
+
 def card_vs_cpu(H, kernels, torch):
     """The same path on the card and on the CPU (plain versions): same
     levels, same operator formats, same iteration count. 24^3 float64
@@ -424,6 +715,73 @@ def card_vs_cpu(H, kernels, torch):
                         f"{tag}: the card run never launched {name}")
 
 
+def device_setup_card_vs_cpu(H, kernels, torch):
+    """The device setup with one aggressive level on the card and on the
+    CPU: same true level sizes, C-point counts, operator formats and PCG
+    iteration count. 24^3 float64 stores P as ELL (a TransferDia's
+    selections run the float32 gather kernel); 48^3 float32 stores the
+    stencil level's P as a TransferDia."""
+    for n, dtype, rtol, tdia in ((N_PARITY, torch.float64, 1e-8, False),
+                                 (N_PARITY_BANDED, torch.float32, 1e-6,
+                                  True)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            kernels.reset_launches()
+            A = H.laplacian_3d_7pt(n, n, n, dtype=dtype, device=device)
+            hier = H.setup_hierarchy_device(
+                A, device=device, transfer_dia=tdia,
+                **dict(BENCH_KW, max_coarse_size=100))
+            fast = H.optimize_hierarchy(hier, gather_precision=0,
+                                        prefer_pallas=True, specialize=True,
+                                        device=device)
+            b = padded_ones(fast, A.n_rows, torch, dtype, device)
+            x, info = solve(H, fast, fast.levels[0].A, b, device, rtol)
+            out[device] = {
+                "true_levels": list(hier.n_level_true),
+                "levels": level_sizes(hier),
+                "c_points": [int((lv.cf == 1).sum()) for lv in hier.levels],
+                "formats": describe_formats(fast),
+                "iterations": int(info.iterations),
+                "converged": bool(info.converged),
+                "relative_residual": float(info.relative_residual),
+                "launches": dict(kernels.LAUNCHES)}
+        tag = f"device setup {n}^3 {str(dtype).split('.')[1]}"
+        log(json.dumps({"card_vs_cpu": tag, **out}))
+        require(out["cuda"]["converged"] and out["cpu"]["converged"],
+                f"{tag} solve did not converge")
+        for key in ("true_levels", "levels", "c_points", "formats",
+                    "iterations"):
+            require(out["cuda"][key] == out["cpu"][key],
+                    f"{tag}: {key} differ between card and CPU")
+        require(not any(out["cpu"]["launches"].values()),
+                f"{tag}: the CPU run launched a kernel")
+        require(out["cuda"]["launches"]["dia_spmv_static"] > 0,
+                f"{tag}: the card run never launched dia_spmv_static")
+        if tdia:
+            require(out["cuda"]["formats"][0][1] == "TransferDia",
+                    f"{tag}: level-0 P is not a TransferDia")
+
+
+def device_setup_twice(H, torch):
+    """Two device setups on the card at 48^3 hold the same bits in every
+    tensor: no step sums or scatters in an order that varies."""
+    hiers = []
+    for _ in range(2):
+        A = H.laplacian_3d_7pt(N_PARITY_BANDED, N_PARITY_BANDED,
+                               N_PARITY_BANDED, dtype=torch.float32,
+                               device="cuda")
+        hiers.append(H.setup_hierarchy_device(
+            A, transfer_dia=True, **dict(BENCH_KW, max_coarse_size=100)))
+    first, second = (list(tensors_of(h, torch)) for h in hiers)
+    require(len(first) == len(second) > 20,
+            "two device setups hold different tensors")
+    differ = [pa for (pa, a), (pb, b) in zip(first, second)
+              if pa != pb or not torch.equal(a, b)]
+    log(json.dumps({"device_setup_twice": f"{N_PARITY_BANDED}^3 float32",
+                    "tensors": len(first), "differ": differ}))
+    require(not differ, f"two device setups differ in {differ}")
+
+
 def main() -> int:
     import torch
 
@@ -458,19 +816,44 @@ def main() -> int:
         require(l_st[name] > 0, f"specialized path never launched {name}")
     per_iteration_launches(H, kernels, torch, fast)
 
-    results = check_kernels(H, torch, hier, fast)
-    card_vs_cpu(H, kernels, torch)
+    hier_td, fast_td, l_td, it_td = run_bench_path(H, kernels, torch, True)
+    hier_bp, fast_bp, l_bp, it_bp = run_bench_path(H, kernels, torch, False)
+    require(it_td == it_bp, f"TransferDia ({it_td}) and banded-P ({it_bp}) "
+            "hierarchies took different iteration counts")
+    require(level_sizes(hier_td) == level_sizes(hier_bp)
+            and hier_td.n_level_true == hier_bp.n_level_true,
+            "the two device setups built different levels")
 
+    results = check_kernels(H, torch, hier, fast)
+    at_new_shapes, _ = check_transfer_kernels(
+        H, torch, fast_td[False].levels[0].P, fast_td[True].levels[0].P,
+        hier_bp, fast_bp[False])
+    del hier, fast, hier_td, fast_td, hier_bp, fast_bp
+    torch.cuda.empty_cache()
+    card_vs_cpu(H, kernels, torch)
+    device_setup_card_vs_cpu(H, kernels, torch)
+    device_setup_twice(H, torch)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    path_launches = [l_dyn, l_st, l_td[False], l_td[True], l_bp[False],
+                     l_bp[True]]
     line = []
     for name, (src, replaces) in SOURCES.items():
         rc = results[name]
-        line.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces,
-                     "launches": l_dyn[name] + l_st[name],
-                     "max_abs_err": rc["max_abs_err"], "ms": rc["ms"],
-                     "plain_ms": rc["plain_ms"], "bound_ms": rc["bound_ms"],
-                     "bound_by": rc["bound_by"],
-                     "library_ms": rc["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces,
+                 "launches": sum(l[name] for l in path_launches)}
+        entry.update({k: rc[k] for k in keys})
+        # the worst error over every shape checked, beside the first
+        # path's times; the device-setup path's shapes follow
+        more = at_new_shapes.get(name, [])
+        entry["max_abs_err"] = max([rc["max_abs_err"]]
+                                   + [m["max_abs_err"] for m in more])
+        entry["other_shapes"] = [
+            dict({"operator": m["operator"], "shape": m["shape"]},
+                 **{k: m[k] for k in keys}) for m in more]
+        line.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ tensors. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
+from hypre_tpu_torch.amg.device_setup import setup_hierarchy_device
 from hypre_tpu_torch.amg.hierarchy import (
     AMGHierarchy, Level, amg_cycle, make_smoother, optimize_hierarchy,
-    setup_hierarchy,
+    setup_hierarchy, unpad_hierarchy,
 )
 from hypre_tpu_torch.core.config import ConvergenceInfo, resolve_device
 from hypre_tpu_torch.convert import ell_from_numpy, hierarchy_from_numpy
@@ -23,3 +24,4 @@ from hypre_tpu_torch.problems.laplacian import (
 from hypre_tpu_torch.seq.dia import DiaMatrix
 from hypre_tpu_torch.seq.ell import EllMatrix, csr_to_ell, ell_spmv
 from hypre_tpu_torch.seq.fastmv import BandedEll
+from hypre_tpu_torch.seq.transfer_dia import TransferDia

@@ -5,10 +5,12 @@ Counterpart of ``hypre_tpu/amg/hierarchy.py`` (hypre_BoomerAMGSetup,
 ``par_cycle.c:23``), for the pure setup path: strength, PMIS, extended+i
 interpolation with truncation, and Galerkin RAP through the sort-based
 SpGEMM, all as tensor operations on the hierarchy's device, driven by a
-host loop that reads back only sizes. ``optimize_hierarchy`` then swaps
-each level operator for its kernel format (DIA on stencil levels, the
-banded gather elsewhere), and ``amg_cycle`` runs V/W/F cycles over the
-level list.
+host loop that reads back only sizes. ``setup_backend="device"`` dispatches to the
+slab-formulated on-device setup of ``amg/device_setup.py``, which also has
+aggressive coarsening. ``optimize_hierarchy`` then swaps each level
+operator for its kernel format (DIA on stencil levels, the banded gather
+elsewhere; a ``TransferDia`` passes through), and ``amg_cycle`` runs V/W/F
+cycles over the level list.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.fastmv import BandedEll, banded_spmv_t, \
     optimize_operator, with_transpose_schedule
 from hypre_tpu_torch.seq.spgemm import ell_spgemm, ell_transpose
+from hypre_tpu_torch.seq.transfer_dia import TransferDia
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +89,8 @@ def unpad_hierarchy(hier: AMGHierarchy) -> AMGHierarchy:
         if not isinstance(lv.P, EllMatrix) or (
             lv.Pt is not None and not isinstance(lv.Pt, EllMatrix)
         ):
-            raise ValueError("unpad_hierarchy needs ELL transfers")
+            raise ValueError("unpad_hierarchy needs ELL transfers "
+                             "(transfer_dia hierarchies stay padded)")
         new_levels.append(dataclasses.replace(
             lv,
             A=EllMatrix(vals=lv.A.vals[:nt], cols=lv.A.cols[:nt], n_cols=nt),
@@ -154,14 +158,35 @@ def setup_hierarchy(
 
     The port has the reference's pure path (``setup_backend="jax"``, which
     ``"auto"`` also selects) with PMIS coarsening and extended+i
-    interpolation. The host C++ setup (``"native"``) and the on-device
-    setup (``"device"``) are ROADMAP Queue 1 items 15 and 7.
+    interpolation, and the on-device setup (``"device"``:
+    ``device_setup.setup_hierarchy_device``, which takes this function's
+    arguments that it shares and also has ``agg_num_levels``; call it
+    directly for its own options). The host C++ setup (``"native"``) is
+    ROADMAP Queue 1 item 15.
     """
-    if setup_backend in ("native", "device"):
-        item = "15" if setup_backend == "native" else "7"
+    if setup_backend == "device":
+        from hypre_tpu_torch.amg.device_setup import setup_hierarchy_device
+
+        if interp != "ext+i" or coarsen != "pmis":
+            raise ValueError(
+                "the device setup backend covers pmis + ext+i "
+                f"(got coarsen={coarsen!r}, interp={interp!r})")
+        if (restrict_type != "transpose" or nongalerkin_tol > 0
+                or interp_jacobi_passes > 0):
+            raise ValueError(
+                "device setup backend: AIR, non-Galerkin and Jacobi-interp "
+                "options are not wired to it")
+        return setup_hierarchy_device(
+            A, strength_threshold=strength_threshold,
+            max_row_sum=max_row_sum, max_levels=max_levels,
+            max_coarse_size=max_coarse_size, p_max_elmts=p_max_elmts,
+            trunc_factor=trunc_factor, relax=relax,
+            coarsen_rtol=coarsen_rtol, agg_num_levels=agg_num_levels,
+            device=device)
+    if setup_backend == "native":
         raise NotImplementedError(
-            f"setup_backend={setup_backend!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item {item}); use setup_backend='jax'")
+            "setup_backend='native' is not ported yet (ROADMAP.md Queue 1 "
+            "item 15); use setup_backend='jax' or 'device'")
     if setup_backend not in ("jax", "auto"):
         raise ValueError(f"unknown setup backend: {setup_backend!r}")
     if coarsen != "pmis" or interp != "ext+i":
@@ -171,8 +196,9 @@ def setup_hierarchy(
     if (interp_jacobi_passes or agg_num_levels or nongalerkin_tol
             or restrict_type != "transpose"):
         raise NotImplementedError(
-            "Jacobi-improved interpolation, aggressive coarsening, "
-            "non-Galerkin coarsening and AIR restriction are not ported yet")
+            "the pure setup path has no Jacobi-improved interpolation, "
+            "aggressive coarsening, non-Galerkin coarsening or AIR "
+            "restriction; setup_backend='device' has agg_num_levels")
     A = A.to(resolve_device(device))
     need_cheby = relax == "chebyshev"
     levels: List[Level] = []
@@ -224,7 +250,11 @@ def make_smoother(relax: str, relax_weight: float, cheby_order: int,
 
 def _restrict_level(lev: Level, r: torch.Tensor) -> torch.Tensor:
     # Pt=None marks a Galerkin level whose restriction runs through P's
-    # transpose kernel, from the schedule optimize_hierarchy built
+    # own transpose path: fine-space diagonals for a stencil level's
+    # TransferDia, else the transpose kernel, from the schedule
+    # optimize_hierarchy built
+    if isinstance(lev.P, TransferDia):
+        return lev.P.mv_t(r)
     if lev.Pt is None:
         return banded_spmv_t(lev.P, r)
     return lev.Pt.mv(r)
@@ -307,6 +337,10 @@ def optimize_hierarchy(
 
     specialize: compile the diagonal offsets into the DIA kernel (the
     static kernel) instead of reading them from the device.
+
+    A ``TransferDia`` (the device setup's stencil-level interpolation)
+    passes through with ``Pt=None``; its two DIA members are specialized
+    when asked.
     """
     device = resolve_device(device)
     hier = hier.to(device)
@@ -336,6 +370,12 @@ def optimize_hierarchy(
     new_levels = []
     for lev in hier.levels:
         A = spec_dia(opt(lev.A))
+        if isinstance(lev.P, TransferDia):
+            P = dataclasses.replace(lev.P, P_dia=spec_dia(lev.P.P_dia),
+                                    Pt_dia=spec_dia(lev.P.Pt_dia))
+            new_levels.append(
+                refresh_lmax(dataclasses.replace(lev, A=A, P=P, Pt=None), A))
+            continue
         P = spec_dia(opt(lev.P))
         if isinstance(P, BandedEll) and hier.galerkin:
             # restriction runs through P's transpose kernel, from a

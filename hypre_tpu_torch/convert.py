@@ -3,7 +3,8 @@
 The port imports nothing of the JAX package, so state built there (or
 anywhere else) comes across as numpy arrays: ``ell_from_numpy`` for one
 ELL matrix and ``hierarchy_from_numpy`` for a whole AMG hierarchy that the
-caller flattened into a dict of arrays. Both place the result on ``device``
+caller flattened into a dict of arrays (a ``TransferDia`` level and the
+true sizes of a row-padded hierarchy included). All place the result on ``device``
 (CUDA unless the caller names another).
 """
 
@@ -14,7 +15,10 @@ import torch
 
 from hypre_tpu_torch.amg.hierarchy import AMGHierarchy, Level
 from hypre_tpu_torch.core.config import resolve_device
+from hypre_tpu_torch.seq.dia import DiaMatrix
 from hypre_tpu_torch.seq.ell import EllMatrix
+from hypre_tpu_torch.seq.fastmv import BandedEll
+from hypre_tpu_torch.seq.transfer_dia import TransferDia
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -35,22 +39,63 @@ def ell_from_numpy(vals, cols, n_cols: int, shifts=None,
     )
 
 
+def dia_from_numpy(d: dict, device=None) -> DiaMatrix:
+    """DiaMatrix from {"dvals": (D, n) array, "offsets": D ints,
+    "n_cols": int}."""
+    device = resolve_device(device)
+    return DiaMatrix(dvals=_tensor(d["dvals"], device),
+                     offsets=tuple(int(o) for o in d["offsets"]),
+                     n_cols=int(d["n_cols"]))
+
+
+def banded_from_numpy(d: dict, device=None) -> BandedEll:
+    """BandedEll from {"ell": matrix dict, "vals_t", "lcols_t", "starts":
+    arrays, "W", "B", "n_xpad", "exact": ints}."""
+    device = resolve_device(device)
+    ell = d["ell"]
+    return BandedEll(
+        ell=ell_from_numpy(ell["vals"], ell["cols"], ell["n_cols"],
+                           device=device),
+        vals_t=_tensor(d["vals_t"], device),
+        lcols_t=_tensor(d["lcols_t"], device, torch.int32),
+        starts=_tensor(d["starts"], device, torch.int32),
+        W=int(d["W"]), B=int(d["B"]), n_xpad=int(d["n_xpad"]),
+        exact=int(d.get("exact", 1)),
+        n_rows_s=int(np.shape(ell["vals"])[0]), n_cols_s=int(ell["n_cols"]))
+
+
+def transfer_dia_from_numpy(d: dict, device=None) -> TransferDia:
+    """TransferDia from {"P_dia", "Pt_dia": dia dicts, "expand",
+    "compress": banded dicts, "n_coarse": int}."""
+    return TransferDia(
+        P_dia=dia_from_numpy(d["P_dia"], device),
+        Pt_dia=dia_from_numpy(d["Pt_dia"], device),
+        expand=banded_from_numpy(d["expand"], device),
+        compress=banded_from_numpy(d["compress"], device),
+        n_coarse_s=int(d["n_coarse"]))
+
+
 def hierarchy_from_numpy(d: dict, device=None) -> AMGHierarchy:
     """AMGHierarchy from a dict of numpy arrays:
 
-        {"levels": [{"A": m, "P": m, "Pt": m or None, "dinv": a,
+        {"levels": [{"A": m, "P": m or t, "Pt": m or None, "dinv": a,
                      "l1inv": a, "lmax": a, "cf": a or None}, ...],
-         "coarse_inv": a, "galerkin": bool (optional)}
+         "coarse_inv": a, "galerkin": bool (optional),
+         "n_fine": int, "n_level_true": tuple (optional: a row-padded
+         hierarchy's true sizes)}
 
     where each matrix m is {"vals": a, "cols": a, "n_cols": int,
-    "shifts": tuple or None}. Levels hold plain ELL operators; run
-    ``optimize_hierarchy`` for the kernel formats.
+    "shifts": tuple or None} and t is a TransferDia dict (it has the key
+    "P_dia", see ``transfer_dia_from_numpy``). ELL operators stay plain;
+    run ``optimize_hierarchy`` for the kernel formats.
     """
     device = resolve_device(device)
 
     def mat(m):
         if m is None:
             return None
+        if "P_dia" in m:
+            return transfer_dia_from_numpy(m, device)
         return ell_from_numpy(m["vals"], m["cols"], m["n_cols"],
                               m.get("shifts"), device=device)
 
@@ -64,6 +109,8 @@ def hierarchy_from_numpy(d: dict, device=None) -> AMGHierarchy:
             lmax=_tensor(lv["lmax"], device),
             cf=None if cf is None else _tensor(cf, device, torch.int8),
         ))
-    return AMGHierarchy(levels=levels,
-                        coarse_inv=_tensor(d["coarse_inv"], device),
-                        galerkin=bool(d.get("galerkin", True)))
+    return AMGHierarchy(
+        levels=levels, coarse_inv=_tensor(d["coarse_inv"], device),
+        galerkin=bool(d.get("galerkin", True)),
+        n_fine=int(d.get("n_fine", 0)),
+        n_level_true=tuple(int(v) for v in d.get("n_level_true", ())))

@@ -34,7 +34,11 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxStaticD = 48;  // try_dia's max_offsets
+// Static instantiations: every D up to try_dia's max_offsets, and above it
+// the values that TransferDia pads its diagonal count to (the setup's width
+// ladder up to probe_transfer_offsets' limit).
+constexpr int kMaxDenseStaticD = 48;
+constexpr int kMaxStaticD = 96;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -96,8 +100,15 @@ cudaError_t launch_dyn(const void* dvals, const void* offsets, const void* x,
   return cudaGetLastError();
 }
 
+// The next smaller diagonal count that has an instantiation: the ladder
+// values above kMaxDenseStaticD, every count below.
+constexpr int next_static_d(int d) {
+  return d > 80 ? 80 : d > 64 ? 64 : d > 56 ? 56
+       : d > kMaxDenseStaticD ? kMaxDenseStaticD : d - 1;
+}
+
 // Finds the instantiation for the run-time diagonal count by recursion
-// from kMaxStaticD down to 1.
+// from kMaxStaticD down to 1; a count without one is an invalid value.
 template <typename T, int D>
 cudaError_t launch_static(int want, const int* offs_host, const void* dvals,
                           const void* x, void* y, long long n_rows,
@@ -106,8 +117,8 @@ cudaError_t launch_static(int want, const int* offs_host, const void* dvals,
     return cudaErrorInvalidValue;
   } else {
     if (want != D)
-      return launch_static<T, D - 1>(want, offs_host, dvals, x, y, n_rows,
-                                     n_cols, stream);
+      return launch_static<T, next_static_d(D)>(want, offs_host, dvals, x, y,
+                                                n_rows, n_cols, stream);
     DiaOffsets<D> offs;
     for (int d = 0; d < D; ++d) offs.o[d] = offs_host[d];
     if (n_rows > 0) {
@@ -136,8 +147,8 @@ int hypre_dia_spmv_f64(const void* dvals, const void* offsets, const void* x,
   return (int)launch_dyn<double>(dvals, offsets, x, y, n_rows, n_cols, D, stream);
 }
 
-// offs_host: HOST int32 (D,), 1 <= D <= 48, copied into the kernel's
-// arguments at launch.
+// offs_host: HOST int32 (D,), D in 1..48 or one of 56, 64, 80, 96, copied
+// into the kernel's arguments at launch (at most 384 bytes).
 int hypre_dia_spmv_static_f32(const void* dvals, const void* offs_host,
                               const void* x, void* y, long long n_rows,
                               long long n_cols, int D, void* stream) {

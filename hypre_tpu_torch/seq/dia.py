@@ -207,7 +207,10 @@ def dia_spmv_static_plain(dvals, offsets_static, x) -> torch.Tensor:
 
 
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-MAX_STATIC_D = 48  # kMaxStaticD in csrc/dia_spmv.cu: try_dia's max_offsets
+# Diagonal counts csrc/dia_spmv.cu instantiates the static kernel for: every
+# count up to try_dia's max_offsets, and the widths TransferDia pads to
+MAX_STATIC_D = 96
+STATIC_D_LADDER = (56, 64, 80, 96)
 
 
 @functools.lru_cache(maxsize=64)
@@ -254,9 +257,9 @@ def dia_spmv_static(dvals, offsets_static, x, n_cols: int) -> torch.Tensor:
     if len(offsets_static) != D:
         raise ValueError(f"{len(offsets_static)} static offsets for {D} "
                          "diagonals")
-    if not 1 <= D <= MAX_STATIC_D:
-        raise ValueError(f"static DIA kernel takes 1..{MAX_STATIC_D} "
-                         f"diagonals, got {D}")
+    if not 1 <= D <= MAX_STATIC_D or (D > 48 and D not in STATIC_D_LADDER):
+        raise ValueError("static DIA kernel takes 1..48 diagonals or one of "
+                         f"{STATIC_D_LADDER}, got {D}")
     offs = _host_offsets(tuple(int(o) for o in offsets_static))
     y = torch.empty(n, dtype=dvals.dtype, device=x.device)
     fn = getattr(kernels.library("dia_spmv"),

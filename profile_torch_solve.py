@@ -3,12 +3,19 @@
 
     python3 profile_torch_solve.py
 
-Runs chip_smoke.py's main path, with its configuration (N_MAIN, SETUP_KW):
-the 128^3 7-pt Laplacian in float32, the pure setup, optimize_hierarchy,
-AMG-PCG at rtol 1e-6. It prints one JSON object:
+Runs chip_smoke.py's two paths with its configurations (N_MAIN, SETUP_KW,
+BENCH_KW) on the 128^3 7-pt Laplacian in float32: the pure setup, and the
+device setup of the reference bench (aggressive first level, multipass
+interpolation, slab RAP, transfer_dia True and False); each followed by
+optimize_hierarchy and AMG-PCG at rtol 1e-6. It prints one JSON object
+with, for the pure path at the top level and for the other two under
+"device_setup":
 
 - setup: host seconds per setup stage (each stage bracketed by
-  torch.cuda.synchronize()), summed over levels;
+  torch.cuda.synchronize()), summed over levels; for the device setup also
+  the seconds of a warm setup without the stage brackets, and the seconds
+  of its slab sorts (every ``sort_slab`` call bracketed the same way, in a
+  run of its own);
 - solve: warm solve seconds (host clock after synchronize) for the dynamic
   and the specialized DIA kernel, in turns, REPEATS times each;
 - profile: one warm specialized solve under torch.profiler — device time
@@ -29,10 +36,93 @@ import sys
 import time
 from collections import defaultdict
 
-from chip_smoke import N_MAIN, SETUP_KW
+from chip_smoke import BENCH_KW, N_MAIN, SETUP_KW
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPEATS = 3
+
+
+def sort_seconds(H, torch, A, kw) -> dict:
+    """Host seconds spent in slabops.sort_slab during one device setup,
+    every call bracketed by a device synchronize, and the call count."""
+    from hypre_tpu_torch.seq import slabops
+
+    spent = {"seconds": 0.0, "calls": 0}
+    plain = slabops.sort_slab
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(*a, **k)
+        torch.cuda.synchronize()
+        spent["seconds"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return out
+
+    slabops.sort_slab = timed
+    try:
+        H.setup_hierarchy_device(A, **kw)
+    finally:
+        slabops.sort_slab = plain
+    return spent
+
+
+def solve_and_profile(H, torch, hier, sm, b):
+    """Warm solves of ``hier`` with the dynamic and the specialized DIA
+    kernel, then one specialized solve under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fast = {spec: H.optimize_hierarchy(hier, gather_precision=0,
+                                       specialize=spec, device="cuda")
+            for spec in (False, True)}
+
+    def solve(spec):
+        f = fast[spec]
+        return H.pcg(f.levels[0].A.mv, b,
+                     M=lambda r: H.amg_cycle(f, r, smoother=sm),
+                     rtol=1e-6, maxiter=100, device="cuda")
+
+    for spec in (False, True):  # warm-up
+        solve(spec)
+    times = {False: [], True: []}
+    iters = {}
+    for _ in range(REPEATS):
+        for spec in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, info = solve(spec)
+            torch.cuda.synchronize()
+            times[spec].append(time.perf_counter() - t0)
+            iters[spec] = int(info.iterations)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = []
+    for e in prof.key_averages():
+        # device-side events only: an aten op's self device time repeats
+        # the time of the kernels it launched
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            per_kernel.append((e.key, dev_us / 1e3, e.count))
+    per_kernel.sort(key=lambda t: -t[1])
+    device_ms = sum(t[1] for t in per_kernel)
+    return (
+        {"iterations": iters[True], "dynamic_s": times[False],
+         "specialized_s": times[True]},
+        {"wall_ms": wall * 1e3, "device_ms": device_ms,
+         "busy_share": device_ms / (min(times[True]) * 1e3),
+         "busy_share_profiled": device_ms / (wall * 1e3),
+         "top": [{"name": k[:120], "ms": ms, "count": c}
+                 for k, ms, c in per_kernel[:15]]})
 
 
 def main() -> int:
@@ -73,53 +163,39 @@ def main() -> int:
     hier = H.setup_hierarchy(A, device="cuda", **SETUP_KW)
     torch.cuda.synchronize()
     setup_total = time.perf_counter() - t0
-    fast = {spec: H.optimize_hierarchy(hier, gather_precision=0,
-                                       specialize=spec, device="cuda")
-            for spec in (False, True)}
     sm = H.make_smoother("chebyshev", 1.0, 2, 0.3)
     b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    solve_rec, profile_rec = solve_and_profile(H, torch, hier, sm, b)
 
-    def solve(spec):
-        f = fast[spec]
-        return H.pcg(f.levels[0].A.mv, b,
-                     M=lambda r: H.amg_cycle(f, r, smoother=sm),
-                     rtol=1e-6, maxiter=100, device="cuda")
-
-    for spec in (False, True):  # warm-up
-        solve(spec)
-    times = {False: [], True: []}
-    iters = {}
-    for _ in range(REPEATS):
-        for spec in (False, True, True, False):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, info = solve(spec)
-            torch.cuda.synchronize()
-            times[spec].append(time.perf_counter() - t0)
-            iters[spec] = int(info.iterations)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solve(True)
+    device_setup = {}
+    for tdia in (True, False):
+        kw = dict(BENCH_KW, transfer_dia=tdia)
+        H.setup_hierarchy_device(A, **kw)  # warm-up
+        stages = {}
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per_kernel = []
-    for e in prof.key_averages():
-        # device-side events only: an aten op's self device time repeats
-        # the time of the kernels it launched
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            per_kernel.append((e.key, dev_us / 1e3, e.count))
-    per_kernel.sort(key=lambda t: -t[1])
-    device_ms = sum(t[1] for t in per_kernel)
+        t0 = time.perf_counter()
+        H.setup_hierarchy_device(A, stage_times=stages, **kw)
+        torch.cuda.synchronize()
+        staged_total = time.perf_counter() - t0
+        plain_s = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            dhier = H.setup_hierarchy_device(A, **kw)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        sort_s = sort_seconds(H, torch, A, kw)
+        d_solve, d_profile = solve_and_profile(H, torch, dhier, sm, b)
+        device_setup["transfer_dia" if tdia else "banded_p"] = {
+            "true_levels": list(dhier.n_level_true),
+            "levels": [lv.A.n_rows for lv in dhier.levels]
+            + [dhier.coarse_inv.shape[0]],
+            "setup": {"total_s": plain_s, "staged_total_s": staged_total,
+                      "stages_s": stages, "sort_slab_s": sort_s,
+                      "peak_bytes": peak},
+            "solve": d_solve, "profile": d_profile}
 
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
@@ -127,13 +203,8 @@ def main() -> int:
         "levels": [lv.A.n_rows for lv in hier.levels]
         + [hier.coarse_inv.shape[0]],
         "setup": {"total_s": setup_total, "stages_s": dict(stage_s)},
-        "solve": {"iterations": iters[True],
-                  "dynamic_s": times[False], "specialized_s": times[True]},
-        "profile": {"wall_ms": wall * 1e3, "device_ms": device_ms,
-                    "busy_share": device_ms / (min(times[True]) * 1e3),
-                    "busy_share_profiled": device_ms / (wall * 1e3),
-                    "top": [{"name": k[:120], "ms": ms, "count": c}
-                            for k, ms, c in per_kernel[:15]]},
+        "solve": solve_rec, "profile": profile_rec,
+        "device_setup": device_setup,
     }
     text = json.dumps(out)
     print(text, flush=True)

@@ -211,7 +211,10 @@ def test_zero_rhs_and_unported_options():
     assert bool(info.converged) and int(info.iterations) == 0
     assert float(x.abs().max()) == 0.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        H.setup_hierarchy(tA, setup_backend="device", device="cpu")
+        H.setup_hierarchy(tA, setup_backend="native", device="cpu")
+    with pytest.raises(NotImplementedError, match="device"):
+        H.setup_hierarchy(tA, setup_backend="jax", agg_num_levels=1,
+                          device="cpu")
     with pytest.raises(NotImplementedError):
         H.setup_hierarchy(tA, coarsen="ruge", setup_backend="jax",
                           device="cpu")

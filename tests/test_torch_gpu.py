@@ -149,3 +149,97 @@ def test_card_and_cpu_build_the_same_hierarchy():
         iters[device] = int(info.iterations)
     assert sizes["cuda"] == sizes["cpu"]
     assert iters["cuda"] == iters["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [56, 64, 80, 96])
+def test_static_dia_kernel_on_the_transfer_ladder_on_card(D):
+    """The static kernel's instantiations above try_dia's 48: the widths a
+    TransferDia pads its diagonal count to. Same order of rounded
+    operations as the plain version, so the results are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(D)
+    n = 60000
+    offs = tuple(sorted(int(o) for o in
+                        rng.choice(np.arange(-3000, 3000), D, replace=False)))
+    for dtype in (torch.float32, torch.float64):
+        dvals = torch.from_numpy(rng.standard_normal((D, n))).to("cuda", dtype)
+        x = torch.from_numpy(rng.standard_normal(n)).to("cuda", dtype)
+        before = kernels.LAUNCHES["dia_spmv_static"]
+        y = dia.dia_spmv_static(dvals, offs, x, n)
+        assert kernels.LAUNCHES["dia_spmv_static"] == before + 1
+        assert torch.equal(y, dia.dia_spmv_static_plain(dvals, offs, x))
+        offs_t = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        y_dyn = dia.dia_spmv(dvals, offs_t, x, n, 4096)
+        assert torch.equal(y_dyn, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [49, 57, 97])
+def test_static_dia_kernel_raises_off_the_ladder_on_card(D):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dvals = torch.zeros((D, 128), device="cuda")
+    x = torch.zeros(128, device="cuda")
+    before = kernels.LAUNCHES["dia_spmv_static"]
+    with pytest.raises(ValueError, match="static DIA kernel"):
+        dia.dia_spmv_static(dvals, tuple(range(D)), x, 128)
+    assert kernels.LAUNCHES["dia_spmv_static"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8192, 2048])
+def test_selection_kernels_match_plain_on_card(B):
+    """Kernel 3 on the k = 1 selections of a TransferDia: the expansion of
+    a coarse vector to the C-point rows (blocks of 8192) and its inverse
+    (blocks of 2048)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.seq.transfer_dia import build_transfer_dia
+
+    rng = np.random.default_rng(B)
+    n, nc = 70000, 9000
+    c_rows = np.sort(rng.choice(n, nc, replace=False))
+    cf = -np.ones(n, np.int32)
+    cf[c_rows] = 1
+    # P: identity on the C rows, one neighbouring C point for the others
+    nearest = np.searchsorted(c_rows, np.arange(n)).clip(0, nc - 1)
+    P = ell_from_numpy(np.ones((n, 1), np.float32),
+                       nearest[:, None].astype(np.int32), nc, device="cuda")
+    T = build_transfer_dia(P, torch.from_numpy(cf).cuda(), tuple(
+        int(o) for o in np.unique(c_rows[nearest] - np.arange(n))[:96]))
+    sel = T.expand if B == 8192 else T.compress
+    assert sel.B == B and sel.vals_t.shape[0] == 1
+    x = torch.from_numpy(rng.standard_normal(sel.n_cols)
+                         .astype(np.float32)).cuda()
+    before = kernels.LAUNCHES["banded_spmv"]
+    y = fastmv.banded_spmv(sel, x)
+    assert kernels.LAUNCHES["banded_spmv"] == before + 1
+    ref = fastmv.banded_spmv_plain(sel.vals_t, sel.lcols_t, sel.starts, x,
+                                   sel.n_rows, sel.B)
+    assert torch.equal(y, ref)
+    if B == 8192:
+        assert torch.equal(y[torch.from_numpy(c_rows).cuda()], x)
+    else:
+        assert torch.equal(y, x[torch.from_numpy(c_rows).cuda()])
+
+
+@pytest.mark.gpu
+def test_device_setup_is_the_same_on_card_and_cpu_and_twice_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kw = dict(max_coarse_size=100, relax="chebyshev", agg_num_levels=1,
+              coarse_drop_tol=0.02, transfer_dia=True)
+    built = {}
+    for tag, device in (("card", "cuda"), ("again", "cuda"), ("cpu", "cpu")):
+        A = H.laplacian_3d_7pt(20, 20, 20, dtype=torch.float32, device=device)
+        built[tag] = H.setup_hierarchy_device(A, device=device, **kw)
+    a, b, c = built["card"], built["again"], built["cpu"]
+    assert a.n_level_true == b.n_level_true == c.n_level_true
+    for la, lb, lc in zip(a.levels, b.levels, c.levels):
+        assert torch.equal(la.cf, lb.cf) and torch.equal(la.cf.cpu(), lc.cf)
+        assert torch.equal(la.A.vals, lb.A.vals)
+        assert torch.equal(la.A.cols.cpu(), lc.A.cols)
+    assert torch.equal(a.levels[0].P.P_dia.dvals, b.levels[0].P.P_dia.dvals)
+    assert torch.equal(a.coarse_inv, b.coarse_inv)

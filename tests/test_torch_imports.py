@@ -12,13 +12,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hypre_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "profile_torch_solve.py"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
     code = (
         "import sys, hypre_tpu_torch\n"
         "import hypre_tpu_torch.convert, hypre_tpu_torch.kernels\n"
+        "import hypre_tpu_torch.seq.slabops, hypre_tpu_torch.core.memory\n"
+        "import hypre_tpu_torch.seq.transfer_dia\n"
+        "import hypre_tpu_torch.amg.device_setup\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu')]\n"
         "assert not bad, bad\n"
@@ -34,6 +37,9 @@ def test_source_scan_finds_no_jax_or_reference_import():
     pattern = re.compile(r"^\s*(import\s+(jax|hypre_tpu)\b|"
                          r"from\s+(jax|hypre_tpu)[\s.])", re.M)
     assert len(PORT_FILES) > 15
+    names = {p.name for p in PORT_FILES}
+    assert {"slabops.py", "transfer_dia.py", "device_setup.py",
+            "memory.py"} <= names
     for path in PORT_FILES:
         text = path.read_text()
         assert not pattern.search(text), path
