@@ -25,15 +25,19 @@ Phases (any failure exits non-zero before the last line is printed):
    and once with ``transfer_dia=False`` (the same P as a banded operator
    with a transpose schedule); each optimized and solved with the dynamic
    and with the static DIA kernel. All four solves must converge within
-   BENCH_ITERATION_LIMIT iterations, take the same number of them, and
-   launch the DIA kernel 8 (TransferDia) or 6 (banded P) times per PCG
-   iteration.
+   BENCH_ITERATION_LIMIT iterations and take the same number of them. Per
+   PCG iteration the dense DIA kernel runs 6 times (the level-0 A) and,
+   with TransferDia, the row-list DIA kernel twice (the D = 64 transfer
+   planes, compacted by ``optimize_hierarchy``).
 4. Kernels against their plain PyTorch versions on the card, at both
    paths' shapes, with times (CUDA events), bounds and the time of one
    PyTorch call that computes the same function (``library_ms``: a CSR
    matrix product). The transpose kernel must also give the same bits in
-   two runs; its schedule's size and build time are printed. The whole
-   level-0 transfer is timed both ways (TransferDia, banded, CSR).
+   two runs; its schedule's size and build time are printed. The row-list
+   DIA kernels run on the TransferDia's two members and must give the bits
+   of the dense kernels' plain version, the same in two runs. The whole
+   level-0 transfer is timed by every route (TransferDia on the row list
+   and on the dense planes, banded, CSR).
 5. Card against CPU: the pure-setup path at 24^3 in float64 and at 48^3 in
    float32 (where the banded kernels run), and the device setup with
    ``agg_num_levels=1`` at the same two sizes, on the card and on the CPU
@@ -47,6 +51,7 @@ It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -88,6 +93,10 @@ SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
     "dia_spmv_static": ("hypre_tpu_torch/csrc/dia_spmv.cu",
+                        "hypre_tpu/seq/dia.py:446 (_dia_kernel_static)"),
+    "dia_rows": ("hypre_tpu_torch/csrc/dia_spmv.cu",
+                 "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
+    "dia_rows_static": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                         "hypre_tpu/seq/dia.py:446 (_dia_kernel_static)"),
     "banded_spmv": ("hypre_tpu_torch/csrc/banded_spmv.cu",
                     "hypre_tpu/seq/fastmv.py:156 (_spmv_kernel)"),
@@ -213,8 +222,6 @@ def padded_ones(fast, n: int, torch, dtype, device):
 def tensors_of(obj, torch, prefix=""):
     """(path, tensor) for every tensor held by a hierarchy, its levels and
     their operators (dataclasses and lists, recursively)."""
-    import dataclasses
-
     if isinstance(obj, torch.Tensor):
         yield prefix, obj
     elif isinstance(obj, (list, tuple)):
@@ -320,14 +327,18 @@ def run_bench_path(H, kernels, torch, transfer_dia: bool):
             require(isinstance(P0f, BandedEll) and P0f.t_vals is not None
                     and fast.levels[0].Pt is None,
                     f"{what}: level-0 P is not banded with a schedule")
-        dia_name = "dia_spmv_static" if specialize else "dia_spmv"
-        other = "dia_spmv" if specialize else "dia_spmv_static"
+        suffix = "_static" if specialize else ""
         per_it = per_iteration_launches(H, kernels, torch, fast)
-        want = 8 if transfer_dia else 6  # 6 for the level-0 A, 2 transfers
-        require(per_it[dia_name] == want and per_it[other] == 0,
-                f"{what}: {per_it[dia_name]} {dia_name} launches per "
-                f"iteration, expected {want}")
-        for name in (dia_name, "banded_spmv", "banded_spmv_t"):
+        # 6 dense products of the level-0 A; 2 row-list transfers
+        want = {"dia_spmv" + suffix: 6,
+                "dia_rows" + suffix: 2 if transfer_dia else 0}
+        for name in ("dia_spmv", "dia_spmv_static", "dia_rows",
+                     "dia_rows_static"):
+            require(per_it[name] == want.get(name, 0),
+                    f"{what}: {per_it[name]} {name} launches per "
+                    f"iteration, expected {want.get(name, 0)}")
+        for name in [k for k, v in want.items() if v] + [
+                "banded_spmv", "banded_spmv_t"]:
             require(launches[specialize][name] > 0,
                     f"{what} never launched {name}")
         fasts[specialize], iters[specialize] = fast, rec["iterations"]
@@ -542,23 +553,33 @@ def csr_of_dia(D, torch):
     return coo.coalesce().to_sparse_csr()
 
 
+def dense_only(M):
+    """A DiaMatrix without its row-list layout: the dense kernels' route."""
+    return dataclasses.replace(M, r_ptr=None, r_ids=None, r_vals=None,
+                               r_rows=None, r_lanes=1)
+
+
 def check_transfer_kernels(H, torch, T, T_static, hier_banded,
                            fast_banded):
-    """Kernels 1 and 2 at D = 64 (P_dia, Pt_dia) and kernel 3 on the k = 1
-    selections of the bench's TransferDia (``T``; ``T_static`` is its
-    specialized twin), then the whole level-0 transfer both ways:
-    TransferDia against the banded route for the same P (kernel
-    3 forward, kernel 4 back) and against one CSR product."""
+    """Kernels 1 and 2 at D = 64 (P_dia, Pt_dia) — the dense kernels on the
+    planes and the row-list kernels on their compact layout — and kernel 3
+    on the k = 1 selections of the bench's TransferDia (``T``;
+    ``T_static`` is its specialized twin), then the whole level-0 transfer
+    both ways: TransferDia on the row list and on the dense planes against
+    the banded route for the same P (kernel 3 forward, kernel 4 back) and
+    against one CSR product."""
     from hypre_tpu_torch.seq import dia as dia_mod
     from hypre_tpu_torch.seq import fastmv
     from hypre_tpu_torch.seq.spgemm import ell_transpose
 
     rng = np.random.default_rng(1)
-    out = {"dia_spmv": [], "dia_spmv_static": [], "banded_spmv": []}
+    out = {"dia_spmv": [], "dia_spmv_static": [], "dia_rows": [],
+           "dia_rows_static": [], "banded_spmv": []}
     n = T.n_rows
     for label, M in (("P_dia", T.P_dia), ("Pt_dia", T.Pt_dia)):
         D = M.D
         require(D == 64, f"{label} has D = {D}, expected 64")
+        require(M.r_ptr is not None, f"{label} has no row-list layout")
         csr = csr_of_dia(M, torch)
         nnz = int(csr.values().numel())
         offs_static = tuple(int(o) for o in M.offsets.cpu().tolist())
@@ -589,6 +610,10 @@ def check_transfer_kernels(H, torch, T, T_static, hier_banded,
             require(rel <= 1e-6, f"{name} {label}: rel err {rel}")
             require(rel_lib <= 1e-5, f"{name} {label}: rel err {rel_lib} "
                     "against the CSR product")
+            out[name].append(rec)
+        rec_rows = check_row_list(torch, dia_mod, label, M, offs_static, x,
+                                  csr, lib, lib_ms)
+        for name, rec in rec_rows.items():
             out[name].append(rec)
 
     for label, sel in (("expand", T.expand), ("compress", T.compress)):
@@ -637,21 +662,30 @@ def check_transfer_kernels(H, torch, T, T_static, hier_banded,
     r = torch.from_numpy(rng.standard_normal(n)).to("cuda", torch.float32)
     up_ref = (csr @ ec[:, None])[:, 0]
     down_ref = (csr_t @ r[:, None])[:, 0]
+    dense = {tag: dataclasses.replace(t, P_dia=dense_only(t.P_dia),
+                                      Pt_dia=dense_only(t.Pt_dia))
+             for tag, t in (("dynamic", T), ("static", T_static))}
     routes = {
         "prolong": {
             "transfer_dia_dynamic": lambda: T.mv(ec),
             "transfer_dia_static": lambda: T_static.mv(ec),
+            "transfer_dia_dense_dynamic": lambda: dense["dynamic"].mv(ec),
+            "transfer_dia_dense_static": lambda: dense["static"].mv(ec),
             "banded": lambda: P_band.mv(ec),
             "csr": lambda: csr @ ec[:, None]},
         "restrict": {
             "transfer_dia_dynamic": lambda: T.mv_t(r),
             "transfer_dia_static": lambda: T_static.mv_t(r),
+            "transfer_dia_dense_dynamic": lambda: dense["dynamic"].mv_t(r),
+            "transfer_dia_dense_static": lambda: dense["static"].mv_t(r),
             "banded": lambda: fastmv.banded_spmv_t(P_band, r),
             "csr": lambda: csr_t @ r[:, None]},
     }
     rec = {"transfer": "level-0 P", "shape": list(P_ell.shape),
            "nnz": int((P_ell.cols >= 0).sum()),
-           "bytes": {"transfer_dia": 2 * T.P_dia.dvals.numel() * 4,
+           "bytes": {"transfer_dia_planes": 2 * T.P_dia.dvals.numel() * 4,
+                     "transfer_dia_row_lists": sum(
+                         layout_bytes(M) for M in (T.P_dia, T.Pt_dia)),
                      "banded_payload": P_band.vals_t.numel() * 8,
                      "banded_schedule": P_band.t_vals.numel() * 8}}
     for way, ref in (("prolong", up_ref), ("restrict", down_ref)):
@@ -664,6 +698,88 @@ def check_transfer_kernels(H, torch, T, T_static, hier_banded,
             rec[f"{way}_{name}_ms"] = time_ms(fn, torch)
     log(json.dumps(rec))
     return out, rec
+
+
+def layout_bytes(M) -> int:
+    """Bytes a DiaMatrix's row-list layout holds (the listed rows too)."""
+    return sum(t.numel() * t.element_size()
+               for t in (M.r_ptr, M.r_ids, M.r_vals, M.r_rows)
+               if t is not None)
+
+
+def check_row_list(torch, dia_mod, label, M, offs_static, x, csr, lib,
+                   lib_ms):
+    """The row-list kernels on ``M``'s compact layout: the bits of the
+    dense kernels' plain version and of their own plain version, the same
+    bits in two runs; times beside the bound of the bytes the layout must
+    move and beside the dense kernels' and the CSR call's times. The
+    layout is also built again from the planes alone, timed, and must
+    equal the one optimize_hierarchy built."""
+    n, D = M.n_rows, M.D
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = dia_mod.compact_dia(dense_only(M))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(all(torch.equal(getattr(again, f), getattr(M, f))
+                for f in ("r_ptr", "r_ids", "r_vals"))
+            and again.r_lanes == M.r_lanes,
+            f"{label}: the row-list layout differs when built again")
+    rows = (M.r_ptr, M.r_ids, M.r_vals)
+    nnz = int(M.r_vals.numel())
+    dense_ref = dia_mod.dia_spmv_plain(M.dvals, M.offsets, x, M.margin)
+    # the columns the layout reaches: the function reads x there only (for
+    # P_dia, the C points to which TransferDia expands the coarse vector)
+    cols = torch.repeat_interleave(
+        torch.arange(n, device=x.device), (M.r_ptr[1:] - M.r_ptr[:-1]).long()
+    ) + M.offsets.long()[M.r_ids.long()]
+    cols = cols[(cols >= 0) & (cols < M.n_cols)]
+    x_cols = int(torch.unique(cols).numel())
+    x_sectors = int(torch.unique(cols // 8).numel())  # 32-byte sectors
+    # a value and a plane id per nonzero, the row pointer, x where the
+    # layout reaches it and y once
+    bms, bby = bound(nnz * 5 + (n + 1) * 4 + x_cols * 4 + n * 4, 2.0 * nnz,
+                     "float32")
+    out = {}
+    for name, offs in (("dia_rows", M.offsets),
+                       ("dia_rows_static", offs_static)):
+        fn = getattr(dia_mod, name)
+
+        def kern():
+            return fn(*rows, offs, x, n, M.r_rows, M.r_lanes)
+
+        def plain():
+            return dia_mod.dia_rows_plain(*rows, offs, x, n)
+
+        y1, y2 = kern(), kern()
+        rel, ab = rel_err(y1, plain(), torch)
+        rel_dense, ab_dense = rel_err(y1, dense_ref, torch)
+        rel_lib, _ = rel_err(y1, lib, torch)
+        rerun, _ = rel_err(y2, y1, torch)
+        rec = {"check": name, "operator": label, "shape": [D, n],
+               "nnz": nnz, "lanes": M.r_lanes,
+               "listed_rows": None if M.r_rows is None else M.r_rows.numel(),
+               "non_empty_rows": int((M.r_ptr[1:] > M.r_ptr[:-1]).sum()),
+               "x_cols": x_cols, "x_sector_bytes": x_sectors * 32,
+               "schedule_bytes": layout_bytes(M),
+               "plane_bytes": M.dvals.numel() * M.dvals.element_size(),
+               "build_s": build_s,
+               "max_rel_err": rel, "max_abs_err": ab, "tol": 0.0,
+               "max_abs_err_vs_dense_plain": ab_dense,
+               "rel_err_vs_csr": rel_lib, "run_to_run_rel": rerun,
+               "ms": time_ms(kern, torch),
+               "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+               "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms}
+        log(json.dumps(rec))
+        require(ab == 0.0 and ab_dense == 0.0,
+                f"{name} {label}: differs from the plain versions by {ab} "
+                f"(row list) and {ab_dense} (dense planes)")
+        require(rel_lib <= 1e-5, f"{name} {label}: rel err {rel_lib} "
+                "against the CSR product")
+        require(rerun == 0.0 and bool(torch.equal(y1, y2)),
+                f"{name} {label}: two runs differ ({rerun})")
+        out[name] = rec
+    return out
 
 
 def card_vs_cpu(H, kernels, torch):
@@ -760,6 +876,8 @@ def device_setup_card_vs_cpu(H, kernels, torch):
         if tdia:
             require(out["cuda"]["formats"][0][1] == "TransferDia",
                     f"{tag}: level-0 P is not a TransferDia")
+            require(out["cuda"]["launches"]["dia_rows_static"] > 0,
+                    f"{tag}: the card run never launched dia_rows_static")
 
 
 def device_setup_twice(H, torch):
@@ -840,14 +958,16 @@ def main() -> int:
                      l_bp[True]]
     line = []
     for name, (src, replaces) in SOURCES.items():
-        rc = results[name]
+        more = list(at_new_shapes.get(name, []))
+        # the row-list kernels run on the bench hierarchy's transfer planes
+        # only: their first shape is P_dia
+        rc = results[name] if name in results else more.pop(0)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces,
                  "launches": sum(l[name] for l in path_launches)}
         entry.update({k: rc[k] for k in keys})
         # the worst error over every shape checked, beside the first
-        # path's times; the device-setup path's shapes follow
-        more = at_new_shapes.get(name, [])
+        # shape's times; the other shapes follow
         entry["max_abs_err"] = max([rc["max_abs_err"]]
                                    + [m["max_abs_err"] for m in more])
         entry["other_shapes"] = [

@@ -28,7 +28,7 @@ from hypre_tpu_torch.amg.relax import (
 )
 from hypre_tpu_torch.amg.strength import strength_mask
 from hypre_tpu_torch.core.config import resolve_device, tensors_to
-from hypre_tpu_torch.seq.dia import DiaMatrix
+from hypre_tpu_torch.seq.dia import DiaMatrix, compact_dia
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.fastmv import BandedEll, banded_spmv_t, \
     optimize_operator, with_transpose_schedule
@@ -341,6 +341,10 @@ def optimize_hierarchy(
     A ``TransferDia`` (the device setup's stencil-level interpolation)
     passes through with ``Pt=None``; its two DIA members are specialized
     when asked.
+
+    Every DIA operator kept then goes through ``compact_dia``: planes that
+    are mostly zero (a TransferDia's) get the row-list layout, which the
+    card's SpMV reads instead of the planes; dense planes stay as they are.
     """
     device = resolve_device(device)
     hier = hier.to(device)
@@ -353,6 +357,9 @@ def optimize_hierarchy(
             return M
         offs = tuple(int(o) for o in M.offsets.cpu().tolist())
         return dataclasses.replace(M, offsets_static=offs)
+
+    def compact(M):
+        return compact_dia(M) if isinstance(M, DiaMatrix) else M
 
     def opt(M):
         if not isinstance(M, EllMatrix):
@@ -369,14 +376,15 @@ def optimize_hierarchy(
 
     new_levels = []
     for lev in hier.levels:
-        A = spec_dia(opt(lev.A))
+        A = compact(spec_dia(opt(lev.A)))
         if isinstance(lev.P, TransferDia):
-            P = dataclasses.replace(lev.P, P_dia=spec_dia(lev.P.P_dia),
-                                    Pt_dia=spec_dia(lev.P.Pt_dia))
+            P = dataclasses.replace(
+                lev.P, P_dia=compact(spec_dia(lev.P.P_dia)),
+                Pt_dia=compact(spec_dia(lev.P.Pt_dia)))
             new_levels.append(
                 refresh_lmax(dataclasses.replace(lev, A=A, P=P, Pt=None), A))
             continue
-        P = spec_dia(opt(lev.P))
+        P = compact(spec_dia(opt(lev.P)))
         if isinstance(P, BandedEll) and hier.galerkin:
             # restriction runs through P's transpose kernel, from a
             # schedule built here once; Pt and the duplicate ELL payload
@@ -384,7 +392,7 @@ def optimize_hierarchy(
             P = with_transpose_schedule(P).drop_ell()
             Pt = None
         else:
-            Pt = spec_dia(opt(lev.Pt))
+            Pt = compact(spec_dia(opt(lev.Pt)))
         if isinstance(A, BandedEll):
             A = A.drop_ell()
         if isinstance(Pt, BandedEll):

@@ -12,8 +12,12 @@ offsets) and use the banded gather of ``fastmv.py``; ``try_dia`` decides.
 On a CUDA tensor ``mv`` launches the hand-written kernels of
 ``csrc/dia_spmv.cu`` — the dynamic one (offsets read from the device
 array) or, when ``offsets_static`` is set, the one whose offsets are
-compiled in — in float32 and float64. On a CPU tensor it runs the plain
-PyTorch versions below, which compute the same sum in the same order.
+compiled in — in float32 and float64. Planes that are mostly zero (a
+``TransferDia``'s fine-space transfer planes) also carry a row-list layout
+of their nonzeros (``compact_dia``), and the card then runs the row-list
+kernels instead. On a CPU tensor ``mv`` runs the plain PyTorch versions of
+the dense kernels, which compute the same sum in the same order; all three
+routes give the same bits for finite x.
 """
 
 from __future__ import annotations
@@ -76,6 +80,13 @@ class DiaMatrix:
     n_cols: int
     margin: int = 0
     offsets_static: tuple | None = None
+    # row-list layout of the nonzeros of dvals (``compact_dia``): per row,
+    # ascending plane id; None when the planes are kept dense only
+    r_ptr: torch.Tensor | None = None  # (n_rows + 1,) int32
+    r_ids: torch.Tensor | None = None  # (nnz,) uint8 plane ids
+    r_vals: torch.Tensor | None = None  # (nnz,) dvals.dtype
+    r_rows: torch.Tensor | None = None  # (n_list,) int32, when r_lanes > 1
+    r_lanes: int = 1  # lanes per listed row (1: one thread per row)
 
     def __post_init__(self):
         offs = self.offsets
@@ -146,6 +157,13 @@ class DiaMatrix:
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[0] != self.n_cols:
             raise ValueError(f"shape mismatch: {self.shape} @ {tuple(x.shape)}")
+        if x.is_cuda and self.r_ptr is not None:
+            rows = (self.r_ptr, self.r_ids, self.r_vals)
+            if self.offsets_static is not None:
+                return dia_rows_static(*rows, self.offsets_static, x,
+                                       self.n_cols, self.r_rows, self.r_lanes)
+            return dia_rows(*rows, self.offsets, x, self.n_cols, self.r_rows,
+                            self.r_lanes)
         if self.offsets_static is not None:
             return dia_spmv_static(self.dvals, self.offsets_static, x,
                                    self.n_cols)
@@ -269,6 +287,158 @@ def dia_spmv_static(dvals, offsets_static, x, n_cols: int) -> torch.Tensor:
     kernels.check(err, "dia_spmv_static")
     kernels.LAUNCHES["dia_spmv_static"] += 1
     return y
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1 and 2 on mostly-zero planes: the row-list route
+# ---------------------------------------------------------------------------
+
+MAX_ROWS_D = 255  # plane ids are stored as uint8
+ROW_LANES = (1, 4)
+# compact when the row list takes at most this share of the planes' bytes:
+# the 7-pt A (every slot a nonzero) stays dense, a TransferDia's planes
+# (~2 % nonzeros at D = 64) compact
+ROWS_MAX_SHARE = 0.25
+# one thread a row while the non-empty rows hold at most this many entries
+# on average, else 4 lanes a listed row: P of the bench hierarchy (1.5 a
+# row) gets one thread a row, its P^T (25 a row) 4 lanes, at every grid size
+ROWS_PER_LANE = 8
+
+
+def row_list_bytes(nnz: int, n_rows: int, itemsize: int) -> int:
+    """Bytes of the row-list layout: a value and a plane id per nonzero,
+    and the row pointer."""
+    return nnz * (itemsize + 1) + (n_rows + 1) * 4
+
+
+def compact_dia(M: DiaMatrix) -> DiaMatrix:
+    """M with the row-list layout of its nonzeros (``r_ptr``, ``r_ids``,
+    ``r_vals``, and the listed rows when a row gets more than one lane), or
+    M as it is when that layout would take more than ``ROWS_MAX_SHARE`` of
+    the planes' bytes.
+
+    One pass over ``dvals.T != 0``: ``nonzero`` on the (n, D) view lists
+    the nonzeros row by row, planes ascending within a row, which is the
+    order in which the dense kernels add them. The same on the card and
+    the CPU. ``dvals`` stays: the plain versions, ``mv_t`` and the masked
+    applies read it.
+    """
+    if M.r_ptr is not None:
+        return M
+    D, n = M.dvals.shape
+    if D > MAX_ROWS_D:
+        raise ValueError(f"row-list layout takes at most {MAX_ROWS_D} "
+                         f"diagonals (uint8 plane ids), got {D}")
+    nz = (M.dvals != 0).T.contiguous()
+    nnz = int(nz.sum())
+    itemsize = M.dvals.element_size()
+    if row_list_bytes(nnz, n, itemsize) > ROWS_MAX_SHARE * D * n * itemsize:
+        return M
+    rows, ids = torch.nonzero(nz, as_tuple=True)
+    r_ptr = torch.searchsorted(
+        rows, torch.arange(n + 1, device=rows.device)).to(torch.int32)
+    listed = torch.nonzero(r_ptr[1:] > r_ptr[:-1])[:, 0].to(torch.int32)
+    lanes = 1 if nnz <= ROWS_PER_LANE * listed.shape[0] else ROW_LANES[-1]
+    return dataclasses.replace(
+        M, r_ptr=r_ptr, r_ids=ids.to(torch.uint8),
+        r_vals=M.dvals[ids, rows].contiguous(),
+        r_rows=listed if lanes > 1 else None, r_lanes=lanes)
+
+
+def dia_rows_plain(r_ptr, r_ids, r_vals, offsets, x, n_cols: int
+                   ) -> torch.Tensor:
+    """Plain version of the row-list kernels: each row's products added
+    left to right in entry order, as the kernels add them. ``offsets`` is
+    the device table or the static tuple."""
+    n = r_ptr.shape[0] - 1
+    dev = x.device
+    counts = (r_ptr[1:] - r_ptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(n, device=dev), counts)
+    offs = torch.as_tensor(offsets, device=dev).long()
+    cols = rows + offs[r_ids.long()]
+    inside = (cols >= 0) & (cols < n_cols)
+    xv = torch.where(inside, x[cols.clamp(0, n_cols - 1)], x.new_zeros(()))
+    pos = torch.arange(rows.shape[0], device=dev) - r_ptr[:-1].long()[rows]
+    width = int(counts.max()) if n else 0
+    slab = x.new_zeros((n, max(width, 1)))
+    slab[rows, pos] = r_vals * xv
+    return fold_sum(slab, dim=1)
+
+
+def _check_rows_operands(r_ptr, r_ids, r_vals, offsets_len, x, n_cols,
+                         r_rows, lanes):
+    if r_vals.dtype not in _DTYPE_SUFFIX:
+        raise ValueError(f"DIA kernel takes float32/float64, got "
+                         f"{r_vals.dtype}")
+    if lanes not in ROW_LANES:
+        raise ValueError(f"lanes must be one of {ROW_LANES}, got {lanes}")
+    if r_ptr.dim() != 1 or r_ptr.shape[0] < 1:
+        raise ValueError("r_ptr must be a 1-D row pointer")
+    kernels.require(r_ptr, "r_ptr", torch.int32, r_ptr.shape, x.device)
+    kernels.require(r_vals, "r_vals", r_vals.dtype, (r_vals.numel(),),
+                    x.device)
+    kernels.require(r_ids, "r_ids", torch.uint8, r_vals.shape, x.device)
+    kernels.require(x, "x", r_vals.dtype, (n_cols,), x.device)
+    if lanes > 1:
+        if r_rows is None:
+            raise ValueError(f"{lanes} lanes per row need the listed rows")
+        kernels.require(r_rows, "r_rows", torch.int32, (r_rows.numel(),),
+                        x.device)
+    if not 1 <= offsets_len <= MAX_ROWS_D:
+        raise ValueError(f"row-list kernel takes 1..{MAX_ROWS_D} diagonals, "
+                         f"got {offsets_len}")
+
+
+def _launch_rows(fn_name, what, r_ptr, r_ids, r_vals, offs_ptr, D, x,
+                 n_cols, r_rows, lanes):
+    n = r_ptr.shape[0] - 1
+    y = torch.empty(n, dtype=r_vals.dtype, device=x.device)
+    fn = getattr(kernels.library("dia_spmv"),
+                 f"{fn_name}_{_DTYPE_SUFFIX[r_vals.dtype]}")
+    rows_ptr = r_rows.data_ptr() if lanes > 1 else None
+    n_list = r_rows.shape[0] if lanes > 1 else 0
+    err = fn(r_ptr.data_ptr(), r_ids.data_ptr(), r_vals.data_ptr(), rows_ptr,
+             offs_ptr, x.data_ptr(), y.data_ptr(), n, n_cols, D, n_list,
+             lanes, kernels.stream_of(x))
+    kernels.check(err, what)
+    kernels.LAUNCHES[what] += 1
+    return y
+
+
+def dia_rows(r_ptr, r_ids, r_vals, offsets, x, n_cols: int, r_rows=None,
+             lanes: int = 1) -> torch.Tensor:
+    """y = A @ x from A's row-list layout with the offsets read from the
+    device: the row-list kernel that replaces
+    ``hypre_tpu/seq/dia.py::_dia_kernel`` on mostly-zero planes on a CUDA
+    tensor, the plain version on a CPU tensor. With ``lanes`` > 1,
+    ``r_rows`` must list every non-empty row in ascending order, as
+    ``compact_dia`` builds it: the kernel writes the other rows' zeros."""
+    if not x.is_cuda:
+        return dia_rows_plain(r_ptr, r_ids, r_vals, offsets, x, n_cols)
+    D = offsets.shape[0]
+    _check_rows_operands(r_ptr, r_ids, r_vals, D, x, n_cols, r_rows, lanes)
+    kernels.require(offsets, "offsets", torch.int32, (D,), x.device)
+    return _launch_rows("hypre_dia_rows", "dia_rows", r_ptr, r_ids, r_vals,
+                        offsets.data_ptr(), D, x, n_cols, r_rows, lanes)
+
+
+def dia_rows_static(r_ptr, r_ids, r_vals, offsets_static, x, n_cols: int,
+                    r_rows=None, lanes: int = 1) -> torch.Tensor:
+    """y = A @ x from A's row-list layout with the offsets passed in the
+    kernel's parameters: replaces ``hypre_tpu/seq/dia.py::_dia_kernel_static``
+    on mostly-zero planes on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if not x.is_cuda:
+        return dia_rows_plain(r_ptr, r_ids, r_vals, offsets_static, x, n_cols)
+    D = len(offsets_static)
+    _check_rows_operands(r_ptr, r_ids, r_vals, D, x, n_cols, r_rows, lanes)
+    if D > MAX_STATIC_D:
+        raise ValueError(f"static row-list kernel takes 1..{MAX_STATIC_D} "
+                         f"diagonals, got {D}")
+    offs = _host_offsets(tuple(int(o) for o in offsets_static))
+    return _launch_rows("hypre_dia_rows_static", "dia_rows_static", r_ptr,
+                        r_ids, r_vals, ctypes.addressof(offs), D, x, n_cols,
+                        r_rows, lanes)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,11 @@ with, for the pure path at the top level and for the other two under
   of its slab sorts (every ``sort_slab`` call bracketed the same way, in a
   run of its own);
 - solve: warm solve seconds (host clock after synchronize) for the dynamic
-  and the specialized DIA kernel, in turns, REPEATS times each;
+  and the specialized DIA kernel, in turns, REPEATS times each, and the
+  seconds of ``optimize_hierarchy`` (formats, transpose schedules, row-list
+  layouts) for each, cold and warm;
+- tile_occupancy (TransferDia only): per row-tile height, the share of
+  (plane, tile) pairs of the level-0 transfer planes that hold a nonzero;
 - profile: one warm specialized solve under torch.profiler — device time
   per kernel name (top 15), total device time, and the device busy share
   (device time over the host wall time of an unprofiled warm solve, and
@@ -67,14 +71,33 @@ def sort_seconds(H, torch, A, kw) -> dict:
     return spent
 
 
+def tile_occupancy(torch, M, tiles=(8, 32, 128, 256)) -> dict:
+    """Share of (plane, row tile) pairs of a DIA operator's planes that
+    hold any nonzero, per tile height: the part of the planes a kernel
+    that skips all-zero tiles would still read."""
+    nz = M.dvals != 0
+    D, n = nz.shape
+    out = {}
+    for t in tiles:
+        m = -(-n // t) * t
+        tiles_nz = torch.nn.functional.pad(nz, (0, m - n)).view(D, m // t, t)
+        out[t] = float(tiles_nz.any(dim=2).float().mean())
+    return out
+
+
 def solve_and_profile(H, torch, hier, sm, b):
     """Warm solves of ``hier`` with the dynamic and the specialized DIA
     kernel, then one specialized solve under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    fast = {spec: H.optimize_hierarchy(hier, gather_precision=0,
-                                       specialize=spec, device="cuda")
-            for spec in (False, True)}
+    fast, optimize_s = {}, {}
+    for spec in (False, True, False, True):  # the second of each is warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fast[spec] = H.optimize_hierarchy(hier, gather_precision=0,
+                                          specialize=spec, device="cuda")
+        torch.cuda.synchronize()
+        optimize_s.setdefault(spec, []).append(time.perf_counter() - t0)
 
     def solve(spec):
         f = fast[spec]
@@ -117,7 +140,9 @@ def solve_and_profile(H, torch, hier, sm, b):
     device_ms = sum(t[1] for t in per_kernel)
     return (
         {"iterations": iters[True], "dynamic_s": times[False],
-         "specialized_s": times[True]},
+         "specialized_s": times[True],
+         "optimize_s": {"dynamic": optimize_s[False],
+                        "specialized": optimize_s[True]}},
         {"wall_ms": wall * 1e3, "device_ms": device_ms,
          "busy_share": device_ms / (min(times[True]) * 1e3),
          "busy_share_profiled": device_ms / (wall * 1e3),
@@ -188,6 +213,13 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated()
         sort_s = sort_seconds(H, torch, A, kw)
         d_solve, d_profile = solve_and_profile(H, torch, dhier, sm, b)
+        occupancy = None
+        if tdia:
+            T = dhier.levels[0].P
+            occupancy = {"P_dia": tile_occupancy(torch, T.P_dia),
+                         "Pt_dia": tile_occupancy(torch, T.Pt_dia),
+                         "nonzero_share": float((T.P_dia.dvals != 0)
+                                                .float().mean())}
         device_setup["transfer_dia" if tdia else "banded_p"] = {
             "true_levels": list(dhier.n_level_true),
             "levels": [lv.A.n_rows for lv in dhier.levels]
@@ -195,7 +227,8 @@ def main() -> int:
             "setup": {"total_s": plain_s, "staged_total_s": staged_total,
                       "stages_s": stages, "sort_slab_s": sort_s,
                       "peak_bytes": peak},
-            "solve": d_solve, "profile": d_profile}
+            "solve": d_solve, "profile": d_profile,
+            "tile_occupancy": occupancy}
 
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,

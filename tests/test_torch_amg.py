@@ -22,6 +22,8 @@ from hypre_tpu.problems.laplacian import laplacian_2d_5pt as j_lap5, \
 import hypre_tpu_torch as H
 from hypre_tpu_torch import kernels
 from hypre_tpu_torch.seq import fastmv
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 SETUP = dict(setup_backend="jax", coarsen="pmis", interp="ext+i",
              p_max_elmts=4, relax="chebyshev", max_coarse_size=64)

@@ -27,6 +27,8 @@ from hypre_tpu.seq.ell import ell_from_dense as j_from_dense
 import hypre_tpu_torch as H
 from hypre_tpu_torch.amg import device_setup as TD
 from hypre_tpu_torch.convert import ell_from_numpy
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 RTOL = 1e-12
 

@@ -25,6 +25,7 @@ from hypre_tpu_torch.convert import ell_from_numpy
 from hypre_tpu_torch.problems.laplacian import laplacian_3d_7pt
 from hypre_tpu_torch.seq import fastmv
 from hypre_tpu_torch.seq.dia import DiaMatrix
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def banded_matrix(rng, n, m, k, band):

@@ -243,3 +243,124 @@ def test_device_setup_is_the_same_on_card_and_cpu_and_twice_on_card():
         assert torch.equal(la.A.cols.cpu(), lc.A.cols)
     assert torch.equal(a.levels[0].P.P_dia.dvals, b.levels[0].P.P_dia.dvals)
     assert torch.equal(a.coarse_inv, b.coarse_inv)
+
+
+def row_planes(rng, D, n, kind):
+    """Mostly-zero planes shaped like a TransferDia's: "P" rows hold 1-4
+    entries, "Pt" rows are empty but for ~6 % that hold 10-43 each."""
+    dvals = np.zeros((D, n))
+    if kind == "P":
+        rows = np.arange(n)
+        lens = rng.integers(1, 5, n)
+    else:
+        rows = np.sort(rng.choice(n, n * 6 // 100, replace=False))
+        lens = rng.integers(10, 44, rows.shape[0])
+    # the lens[j] planes of smallest random rank in row j
+    rank = rng.random((rows.shape[0], D)).argsort(1).argsort(1)
+    hit = rank < lens[:, None]
+    dvals[:, rows] = np.where(hit, rng.standard_normal(hit.shape), 0.0).T
+    return dvals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["P", "Pt"])
+def test_row_list_kernels_match_plain_and_dense_on_card(kind):
+    """The row-list kernels against their plain version and against the
+    dense kernels on the same planes: the same sum in the same order, so
+    the same bits; two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(64 if kind == "P" else 65)
+    D, n = 64, 100003
+    offs = tuple(sorted(int(o) for o in
+                        rng.choice(np.arange(-4095, 4096), D, replace=False)))
+    dv = row_planes(rng, D, n, kind)
+    for dtype in (torch.float32, torch.float64):
+        M = dia.DiaMatrix(dvals=torch.from_numpy(dv).to("cuda", dtype),
+                          offsets=offs, n_cols=n)
+        C = dia.compact_dia(M)
+        assert C.r_ptr is not None
+        assert (C.r_lanes == 1) == (kind == "P")
+        x = torch.from_numpy(rng.standard_normal(n)).to("cuda", dtype)
+        rows = (C.r_ptr, C.r_ids, C.r_vals)
+        plain = dia.dia_rows_plain(*rows, C.offsets, x, n)
+        dense = dia.dia_spmv(M.dvals, M.offsets, x, n, M.margin)
+        before = dict(kernels.LAUNCHES)
+        y = dia.dia_rows(*rows, C.offsets, x, n, C.r_rows, C.r_lanes)
+        y2 = dia.dia_rows(*rows, C.offsets, x, n, C.r_rows, C.r_lanes)
+        y_st = dia.dia_rows_static(*rows, offs, x, n, C.r_rows, C.r_lanes)
+        y_mv = C.mv(x)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dia_rows"] == before["dia_rows"] + 3
+        assert kernels.LAUNCHES["dia_rows_static"] == \
+            before["dia_rows_static"] + 1
+        assert kernels.LAUNCHES["dia_spmv"] == before["dia_spmv"]
+        for got in (y, y2, y_st, y_mv):
+            assert torch.equal(got, plain)
+            assert torch.equal(got, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", dia.ROW_LANES)
+def test_row_list_kernel_every_lane_count_on_card(lanes):
+    """Each schedule of the row-list kernel, forced on one layout: rows of
+    0 to D entries, offsets at +-margin, n not a multiple of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(lanes)
+    D, n = 96, 20011
+    offs = tuple(sorted(set(int(o) for o in
+                            rng.choice(np.arange(-1023, 1024), D - 2,
+                                       replace=False)) | {-1024, 1024}))
+    dv = rng.standard_normal((D, n)) * (rng.random((D, n)) < 0.1)
+    dv[:, 5] = rng.standard_normal(D)  # a full row
+    dv[:, n - 1] = 0.0  # an empty row
+    M = dia.DiaMatrix(dvals=torch.from_numpy(dv).to("cuda", torch.float32),
+                      offsets=offs, n_cols=n)
+    C = dia.compact_dia(M)
+    listed = torch.nonzero(C.r_ptr[1:] > C.r_ptr[:-1])[:, 0].to(torch.int32)
+    rows = (C.r_ptr, C.r_ids, C.r_vals)
+    x = torch.from_numpy(rng.standard_normal(n)).to("cuda", torch.float32)
+    ref = dia.dia_spmv_static_plain(M.dvals, offs, x)
+    for fn, o in ((dia.dia_rows, C.offsets), (dia.dia_rows_static, offs)):
+        y = fn(*rows, o, x, n, listed, lanes)
+        assert torch.equal(y, ref)
+        assert torch.equal(fn(*rows, o, x, n, listed, lanes), y)
+
+
+@pytest.mark.gpu
+def test_row_list_wrapper_raises_on_bad_operands_on_card():
+    """Wrong dtype, shape or device of the layout raises before any launch;
+    nothing falls back to the dense kernel or a plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(3)
+    D, n = 64, 5000
+    offs = tuple(range(-32, 32))
+    M = dia.DiaMatrix(dvals=torch.from_numpy(row_planes(rng, D, n, "Pt"))
+                      .to("cuda", torch.float32), offsets=offs, n_cols=n)
+    C = dia.compact_dia(M)
+    x = torch.ones(n, device="cuda")
+    good = dict(r_ptr=C.r_ptr, r_ids=C.r_ids, r_vals=C.r_vals)
+    bad = [
+        dict(good, r_ptr=C.r_ptr.long()),
+        dict(good, r_ptr=C.r_ptr.cpu()),
+        dict(good, r_ptr=C.r_ptr[:, None]),
+        dict(good, r_ids=C.r_ids.to(torch.int32)),
+        dict(good, r_ids=C.r_ids[1:]),
+        dict(good, r_ids=C.r_ids.cpu()),
+        dict(good, r_vals=C.r_vals.double()),
+        dict(good, r_vals=C.r_vals.cpu()),
+        dict(good, r_vals=C.r_vals[:, None]),
+    ]
+    before = dict(kernels.LAUNCHES)
+    for ops in bad:
+        for fn, o in ((dia.dia_rows, C.offsets), (dia.dia_rows_static, offs)):
+            with pytest.raises(ValueError):
+                fn(ops["r_ptr"], ops["r_ids"], ops["r_vals"], o, x, n,
+                   C.r_rows, C.r_lanes)
+    with pytest.raises(ValueError, match="listed rows"):
+        dia.dia_rows(*good.values(), C.offsets, x, n, None, C.r_lanes)
+    with pytest.raises(ValueError, match="lanes"):
+        dia.dia_rows(*good.values(), C.offsets, x, n, C.r_rows, 3)
+    assert kernels.LAUNCHES == before

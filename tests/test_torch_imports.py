@@ -9,6 +9,8 @@ import sys
 from pathlib import Path
 
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hypre_tpu_torch").rglob("*.py")) + \

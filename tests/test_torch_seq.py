@@ -26,6 +26,7 @@ from hypre_tpu_torch.problems.laplacian import laplacian_3d_7pt
 from hypre_tpu_torch.seq import dia, spgemm
 from hypre_tpu_torch.seq.ell import ell_from_dense, ell_spmv, ell_spmv_t, \
     ell_to_csr
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def random_ell(rng, n, m, k, dtype=np.float64, pad_frac=0.2):

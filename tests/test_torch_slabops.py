@@ -15,6 +15,8 @@ from hypothesis import given, settings, strategies as st
 from hypre_tpu.seq import slabops as J
 
 from hypre_tpu_torch.seq import slabops as T
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 RTOL = 1e-12
 

@@ -26,8 +26,11 @@ import hypre_tpu_torch as H
 from hypre_tpu_torch import kernels
 from hypre_tpu_torch.amg import device_setup as TD
 from hypre_tpu_torch.convert import ell_from_numpy
+from hypre_tpu_torch.seq import dia as TDIA
 from hypre_tpu_torch.seq import transfer_dia as TT
 from hypre_tpu_torch.seq.ell import ell_spmv, ell_spmv_t
+from torch_one_thread import one_torch_thread  # noqa: F401
+
 
 RTOL = 1e-12
 SETUP = dict(max_coarse_size=100, relax="chebyshev", agg_num_levels=1,
@@ -311,7 +314,11 @@ def test_cycle_on_converted_reference_hierarchy_matches(hierarchies, fmt):
 
 
 def test_amg_pcg_with_transfer_dia_takes_the_reference_iterations(
-        hierarchies):
+        hierarchies, monkeypatch):
+    """The optimized hierarchy (its TransferDia members compacted to row
+    lists) takes the reference's PCG iteration count, once with the dense
+    plain products (what mv runs on the CPU) and once with every compacted
+    operator summed from its row list: the two give the same bits."""
     from hypre_tpu.krylov import pcg as j_pcg
 
     jA, tA, jh, th = hierarchies
@@ -322,8 +329,29 @@ def test_amg_pcg_with_transfer_dia_takes_the_reference_iterations(
                      M=lambda r: j_hier.amg_cycle(jh, r, smoother=j_sm),
                      rtol=1e-8, maxiter=60)
     fast = H.optimize_hierarchy(th, specialize=True, device="cpu")
-    _, tinfo = H.pcg(tA.mv, torch.from_numpy(b),
+    T = fast.levels[0].P
+    assert T.P_dia.r_ptr is not None and T.Pt_dia.r_ptr is not None
+
+    def solve():
+        return H.pcg(tA.mv, torch.from_numpy(b),
                      M=lambda r: H.amg_cycle(fast, r, smoother=t_sm),
                      rtol=1e-8, maxiter=60, device="cpu")
+
+    x_dense, tinfo = solve()
+    dense_mv = TDIA.DiaMatrix.mv
+    used = []
+
+    def rows_mv(self, x):
+        if self.r_ptr is None:
+            return dense_mv(self, x)
+        used.append(self.D)
+        return TDIA.dia_rows_plain(self.r_ptr, self.r_ids, self.r_vals,
+                                   self.offsets_static, x, self.n_cols)
+
+    monkeypatch.setattr(TDIA.DiaMatrix, "mv", rows_mv)
+    x_rows, rinfo = solve()
+    assert used and set(used) == {T.P_dia.D}
     assert bool(tinfo.converged) and bool(jinfo.converged)
     assert int(tinfo.iterations) == int(jinfo.iterations) <= 20
+    assert int(rinfo.iterations) == int(tinfo.iterations)
+    assert torch.equal(x_rows, x_dense)
