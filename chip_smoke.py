@@ -44,7 +44,24 @@ Phases (any failure exits non-zero before the last line is printed):
    (plain versions) must give the same level sizes, C-point counts,
    operator formats and PCG iteration count. Two device setups on the
    card at 48^3 must agree in every tensor, bit for bit.
-6. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+6. The BoomerAMG facade at 128^3, float32, b = ones: ``BoomerAMG(
+   max_coarse_size=1500).setup(A)`` on the card (pure setup, then the
+   kernel formats), its setup seconds, levels and ``stats()``; then
+   ``amg.precond()`` under pcg, gmres, flexgmres, cogmres and lgmres
+   (k_dim=30) and bicgstab, and ``amg.solve``, at rtol 1e-6, maxiter 100;
+   and ``BoomerAMG(setup_backend="device", agg_num_levels=1)`` under
+   gmres. Each solve must converge with a true relative residual (in
+   float64) under TRUE_RESIDUAL_LIMIT, and kernels 1, 3 and 4 must launch
+   during it; its iterations, warm milliseconds and launches per
+   iteration are printed.
+7. Facade options, card against CPU, at N_OPTIONS^3 float32 (the CPU run
+   optimizes too, so both run the same formats, the CPU by their plain
+   versions): every coarsening, interpolation, smoother, cycle and
+   restriction option the facade has, solveT, DS-CGNR (float64) and
+   LOBPCG with the facade as T. Each must give the same levels, C-point
+   counts, formats and iterations on both, with a banded operator in
+   every hierarchy; LOBPCG's eigenvalues must agree to 1e-4.
+8. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -89,6 +106,55 @@ BENCH_KW = dict(max_coarse_size=1500, relax="chebyshev", agg_num_levels=1,
                 coarse_drop_tol=0.02)
 # All four 128^3 solves of that hierarchy take 14 iterations on the H100.
 BENCH_ITERATION_LIMIT = 17
+# The facade phase: solver name -> extra arguments, each run with
+# M = amg.precond() at FACADE_RTOL on the 128^3 problem. FlexGMRES and
+# the standalone AMG iteration test the unpreconditioned residual
+# b - A x, computed in float32, which cannot fall below the float32 floor
+# above (~2.4e-4 at 128^3; port on the CPU at 48^3: both stall at 1.6e-5
+# against a floor of 2.8e-5 and hit maxiter at rtol 1e-6): they run at
+# rtol TRUE_RESIDUAL_LIMIT. The others test a recurrence or a
+# preconditioned residual and run at 1e-6.
+FACADE_RTOL = 1e-6
+GMRES_KW = dict(k_dim=30)
+FACADE_SOLVERS = {"pcg": {}, "gmres": GMRES_KW,
+                  "flexgmres": dict(GMRES_KW, rtol=TRUE_RESIDUAL_LIMIT),
+                  "cogmres": GMRES_KW, "lgmres": GMRES_KW, "bicgstab": {}}
+# The options phase's grid: the smallest of 32^3-48^3 at which every
+# option's hierarchy holds a banded operator (checked, phase 7).
+N_OPTIONS = 32
+# (label, BoomerAMG knobs, solve): solve names a Krylov driver run with
+# the facade as M, or "solveT".
+OPTION_CASES = [
+    ("cljp", dict(coarsen_type="cljp", interp="direct"), "pcg"),
+    ("ruge", dict(coarsen_type="ruge"), "pcg"),
+    ("falgout", dict(coarsen_type="falgout"), "pcg"),
+    ("hmis", dict(coarsen_type="hmis"), "pcg"),
+    ("cgc", dict(coarsen_type="cgc"), "pcg"),
+    ("direct", dict(coarsen_type="ruge", interp="direct"), "pcg"),
+    ("classical", dict(coarsen_type="ruge", interp="classical"), "pcg"),
+    ("multipass", dict(interp="multipass"), "pcg"),
+    ("jacobi-interp", dict(interp="direct", coarsen_type="ruge",
+                           interp_jacobi_passes=1, p_max_elmts=8), "pcg"),
+    ("two-stage-gs", dict(relax="two-stage-gs", num_sweeps=2), "gmres"),
+    ("kaczmarz", dict(relax="kaczmarz", relax_weight=0.5, num_sweeps=2),
+     "gmres"),
+    ("sym-two-stage-gs", dict(relax="sym-two-stage-gs"), "pcg"),
+    ("l1-jacobi-cf", dict(relax="l1-jacobi", relax_order=1), "pcg"),
+    ("jacobi-cg-weight", dict(relax="jacobi", relax_weight=-10.0), "pcg"),
+    ("cheby-eig-est", dict(cheby_eig_est=10), "pcg"),
+    ("w-cycle", dict(cycle_type=2), "pcg"),
+    ("f-cycle", dict(cycle_type=3), "pcg"),
+    ("additive", dict(additive=0, relax="l1-jacobi"), "pcg"),
+    ("mult-additive", dict(additive=0, additive_variant="mult",
+                           relax="l1-jacobi"), "pcg"),
+    ("simple-additive", dict(additive=0, additive_variant="simple",
+                             relax="l1-jacobi"), "pcg"),
+    ("air", dict(restrict_type="air", interp="direct", relax="l1-jacobi"),
+     "gmres"),
+    ("solveT", dict(relax="jacobi", relax_weight=0.8), "solveT"),
+]
+OPTIONS_MAX_COARSE = 200
+LOBPCG_PAIRS = 4
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -782,6 +848,182 @@ def check_row_list(torch, dia_mod, label, M, offs_static, x, csr, lib,
     return out
 
 
+def true_rel(A64, x, b) -> float:
+    """||b - A x|| / ||b|| with A, x and b in float64."""
+    b64 = b.double()
+    return float((A64.mv(x.double()) - b64).norm() / b64.norm())
+
+
+def facade_solves(H, amg, b):
+    """The facade phase's solves, name -> zero-argument call: each Krylov
+    driver with the facade as M on the facade's own fine operator (the DIA
+    kernel's), and the standalone AMG iteration. A row-padded hierarchy
+    gets b padded with zeros; each call returns x at b's size."""
+    fine = amg.hierarchy.levels[0].A
+    n = b.shape[0]
+    bp = b.new_zeros(fine.n_rows)
+    bp[:n] = b
+
+    def krylov(name, kw):
+        kw = dict(dict(rtol=FACADE_RTOL), **kw)
+        x, info = getattr(H, name)(fine.mv, bp, M=amg.precond(), maxiter=100,
+                                   device=b.device, **kw)
+        return x[:n], info
+
+    out = {name: (lambda name=name, kw=kw: krylov(name, kw))
+           for name, kw in FACADE_SOLVERS.items()}
+    out["amg.solve"] = lambda: amg.solve(b, rtol=TRUE_RESIDUAL_LIMIT,
+                                         maxiter=100)
+    return out
+
+
+def run_facade_path(H, kernels, torch):
+    """The facade on the card at 128^3 float32; returns the path's launch
+    counts (set to 0 just before, read just after) and the records."""
+    kernels.reset_launches()
+    A = H.laplacian_3d_7pt(N_MAIN, N_MAIN, N_MAIN, dtype=torch.float32,
+                           device="cuda")
+    A64 = H.laplacian_3d_7pt(N_MAIN, N_MAIN, N_MAIN, dtype=torch.float64,
+                             device="cuda")
+    b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    records = []
+    for label, knobs, names in (
+            ("pure", dict(max_coarse_size=1500), None),
+            ("device", dict(setup_backend="device", agg_num_levels=1,
+                            max_coarse_size=1500), ("gmres",))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amg = H.BoomerAMG(**knobs).setup(A)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        hier = amg.hierarchy
+        log(json.dumps({"facade": label, "knobs": knobs, "setup_s": setup_s,
+                        "levels": level_sizes(hier),
+                        "formats": describe_formats(hier)}))
+        log(amg.stats())
+        for name, solve in facade_solves(H, amg, b).items():
+            if names is not None and name not in names:
+                continue
+            before = dict(kernels.LAUNCHES)
+            x, info = solve()  # cold
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = solve()
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            grew = {k: (kernels.LAUNCHES[k] - before[k]) // 2
+                    for k in kernels.LAUNCHES}
+            it = int(info.iterations)
+            rec = {"facade": label, "solver": name, "iterations": it,
+                   "converged": bool(info.converged),
+                   "relative_residual": float(info.relative_residual),
+                   "true_relative_residual": true_rel(A64, x, b),
+                   "warm_ms": warm_ms, "launches": grew,
+                   "launches_per_iteration": {
+                       k: v / max(it, 1) for k, v in grew.items() if v}}
+            log(json.dumps(rec))
+            what = f"facade {label} {name}"
+            require(rec["converged"], f"{what} did not converge")
+            require(bool(torch.isfinite(x).all()), f"{what}: non-finite x")
+            require(rec["true_relative_residual"] <= TRUE_RESIDUAL_LIMIT,
+                    f"{what}: true relative residual "
+                    f"{rec['true_relative_residual']} > "
+                    f"{TRUE_RESIDUAL_LIMIT}")
+            for k in ("dia_spmv", "banded_spmv", "banded_spmv_t"):
+                require(grew[k] > 0, f"{what} never launched {k}")
+            records.append(rec)
+    return dict(kernels.LAUNCHES), records
+
+
+def has_banded(hier) -> bool:
+    from hypre_tpu_torch.seq.fastmv import BandedEll
+
+    return any(isinstance(M, BandedEll) for lv in hier.levels
+               for M in (lv.A, lv.P, lv.Pt))
+
+
+def option_run(H, torch, device, knobs, solve):
+    """One options-phase case on ``device``: facade setup with the kernel
+    formats, then the solve. Returns the comparable record."""
+    A = H.laplacian_3d_7pt(N_OPTIONS, N_OPTIONS, N_OPTIONS,
+                           dtype=torch.float32, device=device)
+    amg = H.BoomerAMG(max_coarse_size=OPTIONS_MAX_COARSE, **knobs).setup(
+        A, optimize=True, device=device)
+    hier = amg.hierarchy
+    b = torch.ones(A.n_rows, dtype=torch.float32, device=device)
+    if solve == "solveT":
+        # the standalone iteration tests b - A^T x in float32 (the floor)
+        x, info = amg.solveT(b, rtol=TRUE_RESIDUAL_LIMIT, maxiter=200)
+    else:
+        x, info = getattr(H, solve)(hier.levels[0].A.mv, b, M=amg.precond(),
+                                    rtol=FACADE_RTOL, maxiter=200,
+                                    device=device)
+    return {"levels": level_sizes(hier),
+            "c_points": [int((lv.cf == 1).sum()) for lv in hier.levels],
+            "formats": describe_formats(hier), "banded": has_banded(hier),
+            "iterations": int(info.iterations),
+            "converged": bool(info.converged),
+            "relative_residual": float(info.relative_residual)}
+
+
+def extra_option_runs(H, torch, device):
+    """DS-CGNR in float64 on the DIA operator, and LOBPCG for the
+    LOBPCG_PAIRS smallest eigenpairs with the facade as T."""
+    n = N_OPTIONS
+    A64 = H.laplacian_3d_7pt(n, n, n, dtype=torch.float64, device=device)
+    from hypre_tpu_torch.seq.dia import try_dia
+
+    D = try_dia(A64)
+    dinv = 1.0 / D.diagonal()
+    b = torch.ones(D.n_rows, dtype=torch.float64, device=device)
+    _, info = H.cgnr(D.mv, D.mv_t, b, M=lambda q: dinv * q, rtol=1e-8,
+                     maxiter=2000, device=device)
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float32, device=device)
+    amg = H.BoomerAMG(max_coarse_size=OPTIONS_MAX_COARSE).setup(
+        A, optimize=True, device=device)
+    X0 = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (A.n_rows, LOBPCG_PAIRS)).astype(np.float32)).to(device)
+    op = amg.hierarchy.levels[0].A.mv
+    lam, _, rn = H.lobpcg(H.block_op(op), X0, T=H.block_op(amg.precond()),
+                          tol=1e-3, maxiter=40)
+    return ({"cgnr_iterations": int(info.iterations),
+             "cgnr_converged": bool(info.converged)},
+            {"lobpcg_eigenvalues": lam.cpu().tolist(),
+             "lobpcg_residuals": rn.cpu().tolist()})
+
+
+def facade_options_card_vs_cpu(H, kernels, torch):
+    """Phase 7: every facade option on the card and on the CPU."""
+    for label, knobs, solve in OPTION_CASES:
+        out = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out[device] = option_run(H, torch, device, knobs, solve)
+            out[device]["seconds"] = time.perf_counter() - t0
+        log(json.dumps({"facade_option": label, "knobs": knobs,
+                        "solve": solve, **out}))
+        tag = f"option {label} at {N_OPTIONS}^3"
+        require(out["cuda"]["converged"] and out["cpu"]["converged"],
+                f"{tag}: a solve did not converge")
+        require(out["cuda"]["banded"], f"{tag}: no banded operator")
+        for key in ("levels", "c_points", "formats", "iterations"):
+            require(out["cuda"][key] == out["cpu"][key],
+                    f"{tag}: {key} differ between card and CPU")
+    cg, eig = {}, {}
+    for device in ("cuda", "cpu"):
+        cg[device], eig[device] = extra_option_runs(H, torch, device)
+    log(json.dumps({"facade_option": "ds-cgnr float64", **cg}))
+    log(json.dumps({"facade_option": "lobpcg", **eig}))
+    require(cg["cuda"]["cgnr_converged"] and cg["cpu"]["cgnr_converged"],
+            "DS-CGNR did not converge")
+    require(cg["cuda"]["cgnr_iterations"] == cg["cpu"]["cgnr_iterations"],
+            "DS-CGNR iterations differ between card and CPU")
+    lc = np.array(eig["cuda"]["lobpcg_eigenvalues"])
+    lh = np.array(eig["cpu"]["lobpcg_eigenvalues"])
+    require(bool(np.all(np.abs(lc - lh) <= 1e-4 * np.abs(lh))),
+            f"LOBPCG eigenvalues differ: {lc} vs {lh}")
+
+
 def card_vs_cpu(H, kernels, torch):
     """The same path on the card and on the CPU (plain versions): same
     levels, same operator formats, same iteration count. 24^3 float64
@@ -948,14 +1190,17 @@ def main() -> int:
         hier_bp, fast_bp[False])
     del hier, fast, hier_td, fast_td, hier_bp, fast_bp
     torch.cuda.empty_cache()
+    l_facade, _ = run_facade_path(H, kernels, torch)
+    torch.cuda.empty_cache()
     card_vs_cpu(H, kernels, torch)
     device_setup_card_vs_cpu(H, kernels, torch)
     device_setup_twice(H, torch)
+    facade_options_card_vs_cpu(H, kernels, torch)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     path_launches = [l_dyn, l_st, l_td[False], l_td[True], l_bp[False],
-                     l_bp[True]]
+                     l_bp[True], l_facade]
     line = []
     for name, (src, replaces) in SOURCES.items():
         more = list(at_new_shapes.get(name, []))

@@ -2,22 +2,26 @@
 
 A second package beside ``hypre_tpu`` (the JAX reference, which it never
 imports). It mirrors the reference's layout — ``core/``, ``seq/``,
-``amg/``, ``krylov/``, ``problems/`` — with plain functions on tensors and
-frozen dataclasses that hold tensors. The reference's TPU kernels are
+``amg/``, ``krylov/``, ``precond/``, ``problems/`` — with plain functions
+on tensors and frozen dataclasses that hold tensors. The reference's TPU kernels are
 hand-written CUDA kernels here (``csrc/``, built with nvcc at first use,
 see ``kernels.py``); each keeps a plain PyTorch version that runs on CPU
 tensors. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
+from hypre_tpu_torch.amg.boomeramg import BoomerAMG
 from hypre_tpu_torch.amg.device_setup import setup_hierarchy_device
 from hypre_tpu_torch.amg.hierarchy import (
-    AMGHierarchy, Level, amg_cycle, make_smoother, optimize_hierarchy,
-    setup_hierarchy, unpad_hierarchy,
+    AMGHierarchy, Level, amg_additive_cycle, amg_cycle, amg_cycle_t,
+    make_smoother, optimize_hierarchy, setup_hierarchy, unpad_hierarchy,
+    with_operator_transposes,
 )
 from hypre_tpu_torch.core.config import ConvergenceInfo, resolve_device
 from hypre_tpu_torch.convert import ell_from_numpy, hierarchy_from_numpy
-from hypre_tpu_torch.krylov.pcg import pcg
+from hypre_tpu_torch.krylov import (
+    bicgstab, block_op, cgnr, cogmres, flexgmres, gmres, lgmres, lobpcg, pcg,
+)
 from hypre_tpu_torch.problems.laplacian import (
     laplacian_2d_5pt, laplacian_3d_7pt,
 )

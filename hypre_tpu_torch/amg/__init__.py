@@ -1,1 +1,3 @@
-"""Algebraic multigrid: strength, PMIS, interpolation, smoothers, hierarchy."""
+"""Algebraic multigrid: strength, coarsening, interpolation, smoothers,
+hierarchy, and the BoomerAMG facade."""
+from hypre_tpu_torch.amg.boomeramg import BoomerAMG

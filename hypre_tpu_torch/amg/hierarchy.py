@@ -2,15 +2,19 @@
 
 Counterpart of ``hypre_tpu/amg/hierarchy.py`` (hypre_BoomerAMGSetup,
 ``parcsr_ls/par_amg_setup.c:28``, and hypre_BoomerAMGCycle,
-``par_cycle.c:23``), for the pure setup path: strength, PMIS, extended+i
-interpolation with truncation, and Galerkin RAP through the sort-based
-SpGEMM, all as tensor operations on the hierarchy's device, driven by a
-host loop that reads back only sizes. ``setup_backend="device"`` dispatches to the
-slab-formulated on-device setup of ``amg/device_setup.py``, which also has
-aggressive coarsening. ``optimize_hierarchy`` then swaps each level
-operator for its kernel format (DIA on stencil levels, the banded gather
-elsewhere; a ``TransferDia`` passes through), and ``amg_cycle`` runs V/W/F
-cycles over the level list.
+``par_cycle.c:23``). The pure setup path runs strength, a coarsening
+(PMIS, CLJP, Ruge-Stüben/Falgout, HMIS or CGC), an interpolation
+(extended+i, direct, classical or multipass, optionally Jacobi-improved)
+with truncation, and a Galerkin RAP through the sort-based SpGEMM — or
+R A P with an AIR restriction — as tensor operations on the hierarchy's
+device, driven by a host loop that reads back only sizes (the RS family
+runs its greedy pass on the host). ``setup_backend="device"`` dispatches
+to the slab-formulated on-device setup of ``amg/device_setup.py``, which
+also has aggressive coarsening. ``optimize_hierarchy`` then swaps each
+level operator for its kernel format (DIA on stencil levels, the banded
+gather elsewhere; a ``TransferDia`` passes through). ``amg_cycle`` runs
+V/W/F cycles over the level list, ``amg_cycle_t`` the transpose V-cycle
+and ``amg_additive_cycle`` the additive variants.
 """
 
 from __future__ import annotations
@@ -20,11 +24,17 @@ from typing import Callable, List, Optional
 
 import torch
 
-from hypre_tpu_torch.amg.coarsen import coarse_map, pmis
-from hypre_tpu_torch.amg.interp import ext_plus_i_interp, truncate_interp
+from hypre_tpu_torch.amg.coarsen import (
+    cgc, cljp, coarse_map, hmis, pmis, ruge_stuben,
+)
+from hypre_tpu_torch.amg.interp import (
+    classical_interp, direct_interp, ext_plus_i_interp,
+    jacobi_improve_interp, multipass_interp, truncate_interp,
+)
 from hypre_tpu_torch.amg.relax import (
-    chebyshev, jacobi, l1_jacobi, l1_norms, max_eig_estimate,
-    max_eig_estimate_cg,
+    cf_jacobi, chebyshev, jacobi, kaczmarz, l1_jacobi, l1_norms,
+    max_eig_estimate, max_eig_estimate_cg, row_norms_sq_inv,
+    sym_two_stage_gs, two_stage_gs,
 )
 from hypre_tpu_torch.amg.strength import strength_mask
 from hypre_tpu_torch.core.config import resolve_device, tensors_to
@@ -134,6 +144,37 @@ def _coarse_pinv(A: EllMatrix) -> torch.Tensor:
     return torch.linalg.pinv(dense, rtol=rtol)
 
 
+COARSENINGS = ("pmis", "cljp", "ruge", "falgout", "hmis", "cgc")
+
+
+def _coarsen(coarsen: str, A, S):
+    if coarsen == "pmis":
+        return pmis(A, S)
+    if coarsen == "cljp":
+        return cljp(A, S)
+    if coarsen in ("ruge", "falgout"):
+        # Falgout on one shard is RS everywhere: CLJP's boundary pass has
+        # no shard boundary to work on
+        return ruge_stuben(A, S)
+    if coarsen == "hmis":
+        return hmis(A, S)
+    return cgc(A, S)
+
+
+def _interpolate(interp: str, A, S, cf, cmap, n_coarse: int,
+                 p_max_elmts: int):
+    if interp == "ext+i":
+        return ext_plus_i_interp(A, S, cf, cmap, n_coarse)
+    if interp == "direct":
+        return direct_interp(A, S, cf, cmap, n_coarse)
+    if interp == "classical":
+        return classical_interp(A, S, cf, cmap, n_coarse)
+    if interp == "multipass":
+        return multipass_interp(A, S, cf, cmap, n_coarse,
+                                p_max_elmts=p_max_elmts)
+    raise ValueError(f"unknown interp type: {interp!r}")
+
+
 def setup_hierarchy(
     A: EllMatrix,
     strength_threshold: float = 0.25,
@@ -156,13 +197,18 @@ def setup_hierarchy(
     """Build the multigrid hierarchy (BoomerAMG setup phase) on ``device``
     (CUDA unless the caller names another; A is moved there).
 
-    The port has the reference's pure path (``setup_backend="jax"``, which
-    ``"auto"`` also selects) with PMIS coarsening and extended+i
-    interpolation, and the on-device setup (``"device"``:
-    ``device_setup.setup_hierarchy_device``, which takes this function's
-    arguments that it shares and also has ``agg_num_levels``; call it
-    directly for its own options). The host C++ setup (``"native"``) is
-    ROADMAP Queue 1 item 15.
+    coarsen: 'pmis' (8) | 'cljp' (0) | 'ruge' (1) | 'falgout' (6, RS on
+    one shard) | 'hmis' (10) | 'cgc' (21). interp: 'ext+i' | 'direct' |
+    'classical' | 'multipass'; ``interp_jacobi_passes`` Jacobi passes
+    improve P. restrict_type: 'transpose' (Galerkin R = P^T) or 'air'
+    (approximate ideal restriction; the hierarchy is then non-Galerkin
+    and each level's Pt holds R).
+
+    setup_backend: 'jax' (the reference's name for this pure path) and
+    'auto' run it; 'device' runs ``device_setup.setup_hierarchy_device``
+    (PMIS + ext+i, with ``agg_num_levels``). The host C++ setup
+    ('native'), and ``agg_num_levels``/``nongalerkin_tol`` on the pure
+    path, are ROADMAP.md Queue 1 item 15 and raise.
     """
     if setup_backend == "device":
         from hypre_tpu_torch.amg.device_setup import setup_hierarchy_device
@@ -189,30 +235,38 @@ def setup_hierarchy(
             "item 15); use setup_backend='jax' or 'device'")
     if setup_backend not in ("jax", "auto"):
         raise ValueError(f"unknown setup backend: {setup_backend!r}")
-    if coarsen != "pmis" or interp != "ext+i":
+    if agg_num_levels or nongalerkin_tol:
         raise NotImplementedError(
-            "the port's setup covers coarsen='pmis' with interp='ext+i' "
-            f"(got coarsen={coarsen!r}, interp={interp!r})")
-    if (interp_jacobi_passes or agg_num_levels or nongalerkin_tol
-            or restrict_type != "transpose"):
-        raise NotImplementedError(
-            "the pure setup path has no Jacobi-improved interpolation, "
-            "aggressive coarsening, non-Galerkin coarsening or AIR "
-            "restriction; setup_backend='device' has agg_num_levels")
+            "aggressive and non-Galerkin coarsening need the host C++ setup "
+            "(ROADMAP.md Queue 1 item 15) on the pure path; "
+            "setup_backend='device' has agg_num_levels")
+    if coarsen not in COARSENINGS:
+        raise ValueError(f"unknown coarsen type: {coarsen!r}")
+    if restrict_type not in ("transpose", "air"):
+        raise ValueError(f"unknown restrict type: {restrict_type!r}")
     A = A.to(resolve_device(device))
     need_cheby = relax == "chebyshev"
     levels: List[Level] = []
 
     while len(levels) < max_levels - 1 and A.n_rows > max_coarse_size:
         S = strength_mask(A, strength_threshold, max_row_sum)
-        cf = pmis(A, S)
+        cf = _coarsen(coarsen, A, S)
         cmap, n_c = coarse_map(cf)
         n_coarse = int(n_c)
         if n_coarse == 0 or n_coarse >= coarsen_rtol * A.n_rows:
             break  # coarsening stalled (par_amg_setup.c stops similarly)
-        P = ext_plus_i_interp(A, S, cf, cmap, n_coarse)
+        P = _interpolate(interp, A, S, cf, cmap, n_coarse, p_max_elmts)
+        if interp_jacobi_passes > 0:
+            P = jacobi_improve_interp(A, P, cf, passes=interp_jacobi_passes,
+                                      max_elmts=p_max_elmts,
+                                      trunc_factor=trunc_factor)
         P = truncate_interp(P, max_elmts=p_max_elmts, trunc_factor=trunc_factor)
-        Pt = ell_transpose(P)
+        if restrict_type == "air":
+            from hypre_tpu_torch.amg.air import air_restriction
+
+            Pt = air_restriction(A, S, cf, cmap, n_coarse)
+        else:
+            Pt = ell_transpose(P)
         AP = ell_spgemm(A, P)
         A_coarse = ell_spgemm(Pt, AP)
         dinv, l1inv, lmax = _level_vectors(A, need_cheby)
@@ -223,21 +277,39 @@ def setup_hierarchy(
     # coarsest: dense pseudo-inverse (hypre's coarse Gaussian elimination,
     # par_gauss_elim.c; pinv tolerates singular coarse operators)
     return AMGHierarchy(levels=levels, coarse_inv=_coarse_pinv(A),
-                        galerkin=True)
+                        galerkin=restrict_type == "transpose")
 
 
 def make_smoother(relax: str, relax_weight: float, cheby_order: int,
                   cheby_ratio: float, relax_order: int = 0):
     """Bind a relax-type string to a (level, u, f) -> u function (the
-    hypre_BoomerAMGRelax relax_type dispatch, par_relax.c:78-160). The port
-    has Jacobi, ℓ1-Jacobi and Chebyshev; CF ordering comes later."""
-    if relax_order != 0:
-        raise NotImplementedError("CF-ordered relaxation is not ported yet")
+    hypre_BoomerAMGRelax relax_type dispatch, par_relax.c:78-160):
+    'jacobi' | 'l1-jacobi' | 'chebyshev' | 'two-stage-gs' |
+    'sym-two-stage-gs' | 'kaczmarz'.
+
+    relax_order=1 applies hypre's CF ordering (C points first, then F
+    points against the updated C values) to the Jacobi-type smoothers;
+    the others ignore it, as hypre's dispatch does for relax types without
+    a relax_points path. A level's ``rw`` (CG-estimated weight), when set,
+    replaces ``relax_weight`` for Jacobi."""
+    def jacobi_weight(lev):
+        return relax_weight if lev.rw is None else lev.rw
+
+    if relax_order == 1 and relax in ("jacobi", "l1-jacobi"):
+        def cf_sm(lev, u, f):
+            if lev.cf is None:
+                raise ValueError(
+                    "relax_order=1 needs the setup path to record the CF "
+                    "splitting (Level.cf); this hierarchy has none")
+            if relax == "jacobi":
+                return cf_jacobi(lev.A, lev.dinv, u, f, lev.cf,
+                                 jacobi_weight(lev))
+            return cf_jacobi(lev.A, lev.l1inv, u, f, lev.cf, 1.0)
+
+        return cf_sm
     if relax == "jacobi":
-        return lambda lev, u, f: jacobi(
-            lev.A, lev.dinv, u, f,
-            relax_weight if lev.rw is None else lev.rw,
-        )
+        return lambda lev, u, f: jacobi(lev.A, lev.dinv, u, f,
+                                        jacobi_weight(lev))
     if relax == "l1-jacobi":
         return lambda lev, u, f: l1_jacobi(lev.A, lev.l1inv, u, f)
     if relax == "chebyshev":
@@ -245,19 +317,51 @@ def make_smoother(relax: str, relax_weight: float, cheby_order: int,
             lev.A, lev.dinv, lev.lmax, u, f, order=cheby_order,
             eig_ratio=cheby_ratio,
         )
-    raise NotImplementedError(f"relax type {relax!r} is not ported yet")
+    if relax == "two-stage-gs":
+        return lambda lev, u, f: two_stage_gs(lev.A, lev.dinv, u, f)
+    if relax == "sym-two-stage-gs":
+        return lambda lev, u, f: sym_two_stage_gs(lev.A, lev.dinv, u, f)
+    if relax == "kaczmarz":
+        # the row norms of each level's operator, computed at its first
+        # sweep and kept (with the operator, so the key stays its own)
+        norms = {}
+
+        def kacz(lev, u, f):
+            key = id(lev.A)
+            if key not in norms:
+                norms[key] = (lev.A, row_norms_sq_inv(lev.A))
+            return kaczmarz(lev.A, norms[key][1], u, f, relax_weight)
+
+        return kacz
+    raise ValueError(f"unknown relax type: {relax!r}")
 
 
 def _restrict_level(lev: Level, r: torch.Tensor) -> torch.Tensor:
     # Pt=None marks a Galerkin level whose restriction runs through P's
     # own transpose path: fine-space diagonals for a stencil level's
     # TransferDia, else the transpose kernel, from the schedule
-    # optimize_hierarchy built
+    # optimize_hierarchy built. A non-Galerkin (AIR) level keeps its R in
+    # Pt, which optimize_hierarchy never drops.
     if isinstance(lev.P, TransferDia):
         return lev.P.mv_t(r)
     if lev.Pt is None:
         return banded_spmv_t(lev.P, r)
     return lev.Pt.mv(r)
+
+
+def _pad_in(hier: AMGHierarchy, f: torch.Tensor, u):
+    """A row-padded hierarchy driven with true-size vectors: pad f and u
+    with zeros (padded rows carry exact zeros through a cycle) and return
+    the true size to slice the result back to, or 0."""
+    n_pad = hier.levels[0].A.vec_len_rows if hier.levels else (
+        hier.coarse_inv.shape[0])
+    if not hier.n_fine or f.shape[0] == n_pad:
+        return f, (torch.zeros_like(f) if u is None else u), 0
+    n = f.shape[0]
+    f = torch.cat([f, f.new_zeros(n_pad - n)])
+    u = f.new_zeros(n_pad) if u is None else torch.cat(
+        [u, u.new_zeros(n_pad - n)])
+    return f, u, n
 
 
 def amg_cycle(
@@ -297,20 +401,127 @@ def amg_cycle(
             u = sm(lev, u, f)
         return u
 
-    n_pad = hier.levels[0].A.vec_len_rows if hier.levels else (
-        hier.coarse_inv.shape[0])
-    unpad = 0
-    if hier.n_fine and f.shape[0] != n_pad:
-        # row-padded hierarchy driven with a true-size vector: pad in,
-        # slice out (padded rows carry exact zeros through the cycle)
-        unpad = f.shape[0]
-        f = torch.cat([f, f.new_zeros(n_pad - unpad)])
-        if u is not None:
-            u = torch.cat([u, u.new_zeros(n_pad - unpad)])
-    if u is None:
-        u = torch.zeros_like(f)
+    f, u, unpad = _pad_in(hier, f, u)
     out = descend(0, f, u, cycle_type)
     return out[:unpad] if unpad else out
+
+
+def amg_cycle_t(
+    hier: AMGHierarchy,
+    f: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
+    relax_weight: float = 1.0,
+    num_sweeps: int = 1,
+) -> torch.Tensor:
+    """Transpose V-cycle, one multigrid cycle on A^T (hypre_BoomerAMGCycleT,
+    par_amg_solveT.c). A Galerkin hierarchy transposes level by level with
+    the same transfers (A_{l+1}^T = P^T A_l^T P): every level product
+    becomes ``A.mv_t`` and the coarse solve uses the transposed inverse;
+    the smoother is damped Jacobi, as hypre forces there (diag(A^T) =
+    diag(A)). A banded level operator needs its transpose schedule
+    (``with_operator_transposes``)."""
+    if not hier.galerkin:
+        raise ValueError(
+            "solveT requires a Galerkin hierarchy (AIR stores R != P^T; "
+            "its transpose cycle would need R^T interpolation)")
+
+    def descend(level: int, f, u):
+        if level == len(hier.levels):
+            return hier.coarse_inv.T @ f
+        lev = hier.levels[level]
+        for _ in range(num_sweeps):
+            u = u + relax_weight * lev.dinv * (f - lev.A.mv_t(u))
+        rc = _restrict_level(lev, f - lev.A.mv_t(u))
+        ec = torch.zeros(lev.P.vec_len_cols, dtype=f.dtype, device=f.device)
+        u = u + lev.P.mv(descend(level + 1, rc, ec))
+        for _ in range(num_sweeps):
+            u = u + relax_weight * lev.dinv * (f - lev.A.mv_t(u))
+        return u
+
+    f, u, unpad = _pad_in(hier, f, u)
+    out = descend(0, f, u)
+    return out[:unpad] if unpad else out
+
+
+def amg_additive_cycle(
+    hier: AMGHierarchy,
+    f: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
+    smoother: Optional[Callable] = None,
+    num_sweeps: int = 1,
+    add_start: int = 0,
+    variant: str = "additive",
+) -> torch.Tensor:
+    """Additive, mult-additive or simple-additive cycle
+    (hypre_BoomerAMGAdditiveCycle, par_add_cycle.c; HYPRE_BoomerAMGSet
+    Additive / MultAdditive / Simple, each from level ``add_start``).
+
+    Levels above ``add_start`` run the multiplicative V recursion; from
+    there down the residual cascades through the restrictions untouched
+    and every level adds an independent correction, summed up through
+    the prolongations:
+
+        B_add = sum_l (P_0 ... P_{l-1}) S_l (P_0 ... P_{l-1})^T
+
+    variant: 'additive' = ``num_sweeps`` smoother sweeps from zero per
+    level; 'simple' = one D^{-1} scaling; 'mult' = the level correction
+    is post-smoothed against the level residual on the way up."""
+    smoother = smoother or make_smoother("l1-jacobi", 1.0, 2, 0.3)
+    f, u, unpad = _pad_in(hier, f, u)
+    add_start = max(0, min(add_start, len(hier.levels)))
+
+    # multiplicative down-sweep above the additive region
+    stack = []
+    f_l, u_l = f, u
+    for lev in hier.levels[:add_start]:
+        for _ in range(num_sweeps):
+            u_l = smoother(lev, u_l, f_l)
+        stack.append((lev, f_l, u_l))
+        f_l = _restrict_level(lev, f_l - lev.A.mv(u_l))
+        u_l = torch.zeros(lev.P.vec_len_cols, dtype=f.dtype, device=f.device)
+
+    core = hier.levels[add_start:]
+    if core:
+        r_cur = f_l - core[0].A.mv(u_l)
+        r_list = []
+        for lev in core:
+            r_list.append(r_cur)
+            r_cur = _restrict_level(lev, r_cur)
+        acc = hier.coarse_inv @ r_cur
+        for lev, r_l in zip(reversed(core), reversed(r_list)):
+            if variant == "simple":
+                e = lev.dinv * r_l
+            else:
+                e = torch.zeros_like(r_l)
+                for _ in range(num_sweeps):
+                    e = smoother(lev, e, r_l)
+            e = e + lev.P.mv(acc)
+            if variant == "mult":
+                for _ in range(num_sweeps):
+                    e = smoother(lev, e, r_l)
+            acc = e
+        u_l = u_l + acc
+    else:
+        u_l = hier.coarse_inv @ f_l
+
+    # multiplicative up-sweep
+    for lev, f_prev, u_prev in reversed(stack):
+        u_l = u_prev + lev.P.mv(u_l)
+        for _ in range(num_sweeps):
+            u_l = smoother(lev, u_l, f_prev)
+    return u_l[:unpad] if unpad else u_l
+
+
+def with_operator_transposes(hier: AMGHierarchy) -> AMGHierarchy:
+    """The hierarchy with a transpose schedule on every banded level
+    operator A that lacks one, so that ``A.mv_t`` runs (Kaczmarz and the
+    transpose cycle). Built once per operator; DIA and ELL operators have
+    their own ``mv_t``."""
+    levels = [
+        dataclasses.replace(lev, A=with_transpose_schedule(lev.A))
+        if isinstance(lev.A, BandedEll) and lev.A.t_vals is None else lev
+        for lev in hier.levels]
+    return dataclasses.replace(hier, levels=levels)
 
 
 def optimize_hierarchy(
@@ -345,6 +556,11 @@ def optimize_hierarchy(
     Every DIA operator kept then goes through ``compact_dia``: planes that
     are mostly zero (a TransferDia's) get the row-list layout, which the
     card's SpMV reads instead of the planes; dense planes stay as they are.
+
+    A banded operator sheds its ELL payload: everything the smoothers and
+    cycles ask of it — products, masked lower/upper products, row norms —
+    reads the slot-major copy; ``with_operator_transposes`` adds what
+    ``A.mv_t`` needs.
     """
     device = resolve_device(device)
     hier = hier.to(device)

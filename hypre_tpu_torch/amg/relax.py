@@ -1,16 +1,21 @@
 """Smoothers (hypre_BoomerAMGRelax dispatch, parcsr_ls/par_relax.c:23).
 
-Counterpart of ``hypre_tpu/amg/relax.py`` for the pointwise-parallel
-smoothers hypre prefers on devices: weighted Jacobi, ℓ1-Jacobi (relax 18)
-and Chebyshev (par_cheby.c) with its eigenvalue estimates. Each smoother is
-a plain function (A, vectors) -> u over any operator with ``mv``.
+Counterpart of ``hypre_tpu/amg/relax.py``: the pointwise-parallel
+smoothers hypre prefers on devices — weighted Jacobi, its CF-ordered form,
+ℓ1-Jacobi (relax 18), Chebyshev (par_cheby.c) with its eigenvalue
+estimates, two-stage Gauss-Seidel (relax 11/12) and simultaneous Kaczmarz
+(relax 20). Each smoother is a plain function (A, vectors) -> u over any
+level operator: ``mv`` for all, the strict-triangle products
+``lower_apply``/``upper_apply`` for the Gauss-Seidel forms and ``mv_t``
+for Kaczmarz, which every format (``EllMatrix``, ``DiaMatrix``,
+``BandedEll`` without its ELL payload) provides.
 """
 
 from __future__ import annotations
 
 import torch
 
-from hypre_tpu_torch.core.config import hash_rand01
+from hypre_tpu_torch.core.config import fold_sum, hash_rand01
 
 
 def jacobi(A, dinv: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
@@ -27,6 +32,18 @@ def l1_norms(A) -> torch.Tensor:
 def l1_jacobi(A, l1inv: torch.Tensor, u: torch.Tensor,
               f: torch.Tensor) -> torch.Tensor:
     return u + l1inv * (f - A.mv(u))
+
+
+def cf_jacobi(A, dinv: torch.Tensor, u: torch.Tensor, f: torch.Tensor,
+              cf: torch.Tensor, weight=1.0) -> torch.Tensor:
+    """CF-ordered (relax_order=1) Jacobi: the C points first, then the F
+    points against the updated C values (hypre's relax_points sweep). cf:
+    +1 C, -1 F; rows marked 0 (padding) never change. Takes dinv- or
+    l1inv-style scalings."""
+    uc = u + weight * dinv * (f - A.mv(u))
+    u = torch.where(cf > 0, uc, u)
+    uf = u + weight * dinv * (f - A.mv(u))
+    return torch.where(cf < 0, uf, u)
 
 
 def _start_vector(A) -> torch.Tensor:
@@ -106,3 +123,47 @@ def chebyshev(
         u = u + d
         rho = rho_new
     return u
+
+
+# ---------------------------------------------------------------------------
+# Two-stage Gauss-Seidel (relax 11/12) and Kaczmarz (relax 20)
+# ---------------------------------------------------------------------------
+
+
+def two_stage_gs(A, dinv: torch.Tensor, u: torch.Tensor,
+                 f: torch.Tensor) -> torch.Tensor:
+    """Forward two-stage GS (relax 11): (D+L)^{-1} approximated by its
+    first two Neumann terms, z = D^{-1} r - D^{-1} L D^{-1} r
+    (par_relax.c:125-131)."""
+    z0 = dinv * (f - A.mv(u))
+    return u + z0 - dinv * A.lower_apply(z0)
+
+
+def sym_two_stage_gs(A, dinv: torch.Tensor, u: torch.Tensor,
+                     f: torch.Tensor) -> torch.Tensor:
+    """Symmetric variant (relax 12): the forward sweep, then the backward
+    one."""
+    u = two_stage_gs(A, dinv, u, f)
+    z0 = dinv * (f - A.mv(u))
+    return u + z0 - dinv * A.upper_apply(z0)
+
+
+def kaczmarz(A, row_norm_inv: torch.Tensor, u: torch.Tensor,
+             f: torch.Tensor, weight=1.0) -> torch.Tensor:
+    """Simultaneous Kaczmarz / Cimmino sweep (relax 20):
+    u += w A^T diag(1/||a_i||^2) (f - A u); Richardson on the normal
+    equations, convergent for any nonsingular A."""
+    return u + weight * A.mv_t(row_norm_inv * (f - A.mv(u)))
+
+
+def row_norms_sq_inv(A) -> torch.Tensor:
+    """1 / ||a_i||^2 per row (1 for an empty row), summed in slot order
+    from whatever payload the format keeps: DIA planes, the banded
+    slot-major copy, or the ELL slab."""
+    if hasattr(A, "dvals"):
+        s = fold_sum(A.dvals * A.dvals, dim=0)
+    elif hasattr(A, "vals_t"):
+        s = fold_sum(A.vals_t * A.vals_t, dim=0)[: A.n_rows]
+    else:
+        s = fold_sum(A.vals * A.vals)
+    return 1.0 / torch.where(s > 0, s, torch.ones_like(s))

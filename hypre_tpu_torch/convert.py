@@ -79,15 +79,18 @@ def hierarchy_from_numpy(d: dict, device=None) -> AMGHierarchy:
     """AMGHierarchy from a dict of numpy arrays:
 
         {"levels": [{"A": m, "P": m or t, "Pt": m or None, "dinv": a,
-                     "l1inv": a, "lmax": a, "cf": a or None}, ...],
+                     "l1inv": a, "lmax": a, "cf": a or None,
+                     "rw": a or None}, ...],
          "coarse_inv": a, "galerkin": bool (optional),
          "n_fine": int, "n_level_true": tuple (optional: a row-padded
          hierarchy's true sizes)}
 
     where each matrix m is {"vals": a, "cols": a, "n_cols": int,
     "shifts": tuple or None} and t is a TransferDia dict (it has the key
-    "P_dia", see ``transfer_dia_from_numpy``). ELL operators stay plain;
-    run ``optimize_hierarchy`` for the kernel formats.
+    "P_dia", see ``transfer_dia_from_numpy``). A non-Galerkin hierarchy
+    ("galerkin": False, AIR) carries its restriction R in each level's
+    "Pt"; "rw" is a level's CG-estimated Jacobi weight. ELL operators stay
+    plain; run ``optimize_hierarchy`` for the kernel formats.
     """
     device = resolve_device(device)
 
@@ -101,13 +104,14 @@ def hierarchy_from_numpy(d: dict, device=None) -> AMGHierarchy:
 
     levels = []
     for lv in d["levels"]:
-        cf = lv.get("cf")
+        cf, rw = lv.get("cf"), lv.get("rw")
         levels.append(Level(
             A=mat(lv["A"]), P=mat(lv["P"]), Pt=mat(lv.get("Pt")),
             dinv=_tensor(lv["dinv"], device),
             l1inv=_tensor(lv["l1inv"], device),
             lmax=_tensor(lv["lmax"], device),
             cf=None if cf is None else _tensor(cf, device, torch.int8),
+            rw=None if rw is None else _tensor(rw, device),
         ))
     return AMGHierarchy(
         levels=levels, coarse_inv=_tensor(d["coarse_inv"], device),

@@ -109,6 +109,21 @@ class EllMatrix:
     def mv_t(self, x: torch.Tensor) -> torch.Tensor:
         return ell_spmv_t(self, x)
 
+    def _masked_apply(self, x: torch.Tensor, sign: int) -> torch.Tensor:
+        rel = (self.cols - self._row_ids()) * sign
+        keep = (rel > 0) & self.structural_mask()
+        g = x[self.cols.clamp(min=0).long()]
+        return fold_sum(torch.where(keep, self.vals, torch.zeros_like(
+            self.vals)) * g)
+
+    def lower_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """L x, L the strict lower triangle (slot mask, no new matrix)."""
+        return self._masked_apply(x, -1)
+
+    def upper_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """U x, U the strict upper triangle."""
+        return self._masked_apply(x, 1)
+
 
 # ---------------------------------------------------------------------------
 # SpMV (hypre_CSRMatrixMatvec, seq_mv/csr_matvec.c:699)

@@ -154,6 +154,31 @@ class BandedEll:
     def mv_t(self, x: torch.Tensor) -> torch.Tensor:
         return banded_spmv_t(self, x)
 
+    def _masked_apply(self, x: torch.Tensor, sign: int) -> torch.Tensor:
+        """The gather's plain version restricted to the slots whose global
+        column lies on one side of the row: read from the slot-major
+        payload, so it needs no ELL copy. Padding slots point inside the
+        window and carry 0."""
+        k, n_pad = self.vals_t.shape
+        base = _row_base(self.starts, self.B, n_pad)
+        rows = torch.arange(n_pad, dtype=torch.int64, device=x.device)
+        y = torch.zeros(n_pad, dtype=x.dtype, device=x.device)
+        for s in range(k):
+            j = base + self.lcols_t[s].to(torch.int64)
+            keep = (j - rows) * sign > 0
+            g = x[j.clamp(0, max(x.shape[0] - 1, 0))]
+            y = y + torch.where(keep, self.vals_t[s],
+                                torch.zeros_like(self.vals_t[s])) * g
+        return y[: self.n_rows]
+
+    def lower_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """L x, L the strict lower triangle (two-stage Gauss-Seidel)."""
+        return self._masked_apply(x, -1)
+
+    def upper_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """U x, U the strict upper triangle."""
+        return self._masked_apply(x, 1)
+
 
 # ---------------------------------------------------------------------------
 # Kernels 3 and 4 and their plain versions

@@ -267,6 +267,18 @@ def ell_transpose(A: EllMatrix, out_k: int | None = None) -> EllMatrix:
     return T
 
 
+def ell_add(alpha, A: EllMatrix, beta, B: EllMatrix,
+            out_k: int | None = None) -> EllMatrix:
+    """C = alpha*A + beta*B (same shape) on the union pattern, in
+    ``out_k`` slots (A.k + B.k, which always suffices, by default)."""
+    if out_k is None:
+        out_k = A.k + B.k
+    cols, vals, _ = _merge_rows(torch.cat([A.cols, B.cols], dim=1),
+                                torch.cat([alpha * A.vals, beta * B.vals],
+                                          dim=1), out_k)
+    return EllMatrix(vals=vals, cols=cols, n_cols=A.n_cols)
+
+
 def ell_filter(A: EllMatrix, keep: torch.Tensor,
                out_k: int | None = None) -> EllMatrix:
     """Keep only entries where ``keep`` (n,k) is True, compacting rows left

@@ -25,7 +25,11 @@ with, for the pure path at the top level and for the other two under
 - profile: one warm specialized solve under torch.profiler — device time
   per kernel name (top 15), total device time, and the device busy share
   (device time over the host wall time of an unprofiled warm solve, and
-  over that of the profiled one, which the profiler slows).
+  over that of the profiled one, which the profiler slows);
+- facade: chip_smoke.py's facade solves — the BoomerAMG facade's cold and
+  warm setup seconds, then for each Krylov driver with the facade as M
+  and for ``amg.solve`` its iterations, warm wall times and one profiled
+  call, as above.
 
 The object is also written to chiprun_out/profile_torch_solve.json. It
 imports nothing of JAX or of hypre_tpu.
@@ -40,7 +44,7 @@ import sys
 import time
 from collections import defaultdict
 
-from chip_smoke import BENCH_KW, N_MAIN, SETUP_KW
+from chip_smoke import BENCH_KW, N_MAIN, SETUP_KW, facade_solves
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPEATS = 3
@@ -88,8 +92,6 @@ def tile_occupancy(torch, M, tiles=(8, 32, 128, 256)) -> dict:
 def solve_and_profile(H, torch, hier, sm, b):
     """Warm solves of ``hier`` with the dynamic and the specialized DIA
     kernel, then one specialized solve under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
     fast, optimize_s = {}, {}
     for spec in (False, True, False, True):  # the second of each is warm
         torch.cuda.synchronize()
@@ -118,11 +120,26 @@ def solve_and_profile(H, torch, hier, sm, b):
             times[spec].append(time.perf_counter() - t0)
             iters[spec] = int(info.iterations)
 
+    return (
+        {"iterations": iters[True], "dynamic_s": times[False],
+         "specialized_s": times[True],
+         "optimize_s": {"dynamic": optimize_s[False],
+                        "specialized": optimize_s[True]}},
+        device_profile(torch, lambda: solve(True), min(times[True])))
+
+
+def device_profile(torch, fn, warm_s: float) -> dict:
+    """One call of ``fn`` under torch.profiler: device time per kernel
+    name (top 15), total device time, and the device busy share (device
+    time over ``warm_s``, the host wall time of an unprofiled warm call,
+    and over that of the profiled one, which the profiler slows)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(True)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_kernel = []
@@ -138,16 +155,40 @@ def solve_and_profile(H, torch, hier, sm, b):
             per_kernel.append((e.key, dev_us / 1e3, e.count))
     per_kernel.sort(key=lambda t: -t[1])
     device_ms = sum(t[1] for t in per_kernel)
-    return (
-        {"iterations": iters[True], "dynamic_s": times[False],
-         "specialized_s": times[True],
-         "optimize_s": {"dynamic": optimize_s[False],
-                        "specialized": optimize_s[True]}},
-        {"wall_ms": wall * 1e3, "device_ms": device_ms,
-         "busy_share": device_ms / (min(times[True]) * 1e3),
-         "busy_share_profiled": device_ms / (wall * 1e3),
-         "top": [{"name": k[:120], "ms": ms, "count": c}
-                 for k, ms, c in per_kernel[:15]]})
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "busy_share": device_ms / (warm_s * 1e3),
+            "busy_share_profiled": device_ms / (wall * 1e3),
+            "top": [{"name": k[:120], "ms": ms, "count": c}
+                    for k, ms, c in per_kernel[:15]]}
+
+
+def facade_profile(H, torch, A) -> dict:
+    """chip_smoke.py's facade solves (BoomerAMG(max_coarse_size=1500) on
+    the card): cold and warm setup seconds, then per solver its
+    iterations, REPEATS warm wall times and one profiled call."""
+    # the device setups before this leave the allocator's cache fragmented
+    torch.cuda.empty_cache()
+    setup_s = []
+    for _ in range(2):  # cold, warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        amg = H.BoomerAMG(max_coarse_size=1500).setup(A)
+        torch.cuda.synchronize()
+        setup_s.append(time.perf_counter() - t0)
+    b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    out = {"setup_s": {"cold": setup_s[0], "warm": setup_s[1]}}
+    for name, solve in facade_solves(H, amg, b).items():
+        _, info = solve()  # warm-up
+        times = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"iterations": int(info.iterations), "warm_s": times,
+                     "profile": device_profile(torch, solve, min(times))}
+    return out
 
 
 def main() -> int:
@@ -166,10 +207,11 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
 
     stage_s = defaultdict(float)
+    plain = {}
     for name in ("strength_mask", "pmis", "coarse_map", "ext_plus_i_interp",
                  "truncate_interp", "ell_transpose", "ell_spgemm",
                  "_level_vectors", "_coarse_pinv"):
-        fn = getattr(hmod, name)
+        fn = plain[name] = getattr(hmod, name)
 
         def timed(*a, _fn=fn, _name=name, **kw):
             torch.cuda.synchronize()
@@ -188,6 +230,8 @@ def main() -> int:
     hier = H.setup_hierarchy(A, device="cuda", **SETUP_KW)
     torch.cuda.synchronize()
     setup_total = time.perf_counter() - t0
+    for name, fn in plain.items():  # later setups run unbracketed
+        setattr(hmod, name, fn)
     sm = H.make_smoother("chebyshev", 1.0, 2, 0.3)
     b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
     solve_rec, profile_rec = solve_and_profile(H, torch, hier, sm, b)
@@ -230,6 +274,7 @@ def main() -> int:
             "solve": d_solve, "profile": d_profile,
             "tile_occupancy": occupancy}
 
+    facade = facade_profile(H, torch, A)
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "n": A.n_rows,
@@ -237,7 +282,7 @@ def main() -> int:
         + [hier.coarse_inv.shape[0]],
         "setup": {"total_s": setup_total, "stages_s": dict(stage_s)},
         "solve": solve_rec, "profile": profile_rec,
-        "device_setup": device_setup,
+        "device_setup": device_setup, "facade": facade,
     }
     text = json.dumps(out)
     print(text, flush=True)

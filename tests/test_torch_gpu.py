@@ -364,3 +364,78 @@ def test_row_list_wrapper_raises_on_bad_operands_on_card():
     with pytest.raises(ValueError, match="lanes"):
         dia.dia_rows(*good.values(), C.offsets, x, n, C.r_rows, 3)
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs,solve", [
+    (dict(), "pcg"),
+    (dict(coarsen_type="ruge", interp="classical"), "pcg"),
+    (dict(relax="two-stage-gs", num_sweeps=2), "gmres"),
+    (dict(relax="sym-two-stage-gs"), "pcg"),
+    (dict(relax="kaczmarz", relax_weight=0.5, num_sweeps=2), "gmres"),
+    (dict(relax="jacobi", relax_weight=0.8), "solveT"),
+])
+def test_facade_on_card_equals_cpu(knobs, solve):
+    """The facade at 40^3 float32 with the kernel formats on both devices
+    (the CPU runs their plain versions): same levels, C points, formats
+    and iterations. The banded coarse levels keep no ELL payload, so the
+    Gauss-Seidel, Kaczmarz and transpose paths read the banded payload
+    and schedules."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = {}
+    for device in ("cuda", "cpu"):
+        A = laplacian_3d_7pt(40, 40, 40, dtype=torch.float32, device=device)
+        amg = H.BoomerAMG(max_coarse_size=200, **knobs).setup(
+            A, optimize=True, device=device)
+        hier = amg.hierarchy
+        b = torch.ones(A.n_rows, dtype=torch.float32, device=device)
+        before = dict(kernels.LAUNCHES)
+        if solve == "solveT":
+            x, info = amg.solveT(b, rtol=1e-4, maxiter=100)
+        else:
+            fn = H.pcg if solve == "pcg" else H.gmres
+            x, info = fn(hier.levels[0].A.mv, b, M=amg.precond(), rtol=1e-6,
+                         maxiter=100, device=device)
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        banded = [M for lv in hier.levels for M in (lv.A, lv.P)
+                  if isinstance(M, fastmv.BandedEll)]
+        assert banded and all(M.ell is None for M in banded)
+        out[device] = ([lv.A.n_rows for lv in hier.levels],
+                       [int((lv.cf == 1).sum()) for lv in hier.levels],
+                       [(type(lv.A).__name__, type(lv.P).__name__)
+                        for lv in hier.levels],
+                       int(info.iterations), bool(info.converged))
+        if device == "cuda":
+            # the transpose cycle's level-0 product is DiaMatrix.mv_t,
+            # plain tensor code; its banded levels run kernels 3 and 4
+            want = (("banded_spmv", "banded_spmv_t") if solve == "solveT"
+                    else ("dia_spmv", "banded_spmv"))
+            assert all(launched[k] > 0 for k in want), launched
+        else:
+            assert not any(launched.values())
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][4]
+
+
+@pytest.mark.gpu
+def test_facade_host_setup_moves_the_hierarchy_to_the_card():
+    """host_setup=True sets up and optimizes on the CPU, then moves the
+    hierarchy: the same levels, formats and PCG count as a setup made on
+    the card, and the solve runs the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    A = laplacian_3d_7pt(40, 40, 40, dtype=torch.float32, device="cuda")
+    b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    out = []
+    for host_setup in (False, True):
+        amg = H.BoomerAMG(max_coarse_size=200).setup(A, host_setup=host_setup)
+        hier = amg.hierarchy
+        assert hier.device.type == "cuda"
+        before = kernels.LAUNCHES["banded_spmv"]
+        _, info = H.pcg(hier.levels[0].A.mv, b, M=amg.precond(), rtol=1e-6)
+        assert kernels.LAUNCHES["banded_spmv"] > before
+        out.append(([lv.A.n_rows for lv in hier.levels],
+                    [(type(lv.A).__name__, type(lv.P).__name__)
+                     for lv in hier.levels], int(info.iterations)))
+    assert out[0] == out[1]

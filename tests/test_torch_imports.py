@@ -24,6 +24,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.seq.slabops, hypre_tpu_torch.core.memory\n"
         "import hypre_tpu_torch.seq.transfer_dia\n"
         "import hypre_tpu_torch.amg.device_setup\n"
+        "import hypre_tpu_torch.amg.boomeramg, hypre_tpu_torch.amg.air\n"
+        "import hypre_tpu_torch.precond.common, hypre_tpu_torch.krylov\n"
+        "import hypre_tpu_torch.krylov.lobpcg, hypre_tpu_torch.krylov.cgnr\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu')]\n"
         "assert not bad, bad\n"
@@ -41,7 +44,9 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert len(PORT_FILES) > 15
     names = {p.name for p in PORT_FILES}
     assert {"slabops.py", "transfer_dia.py", "device_setup.py",
-            "memory.py"} <= names
+            "memory.py", "boomeramg.py", "air.py", "common.py", "gmres.py",
+            "cogmres.py", "flexgmres.py", "lgmres.py", "bicgstab.py",
+            "cgnr.py", "lobpcg.py"} <= names
     for path in PORT_FILES:
         text = path.read_text()
         assert not pattern.search(text), path
