@@ -61,7 +61,25 @@ Phases (any failure exits non-zero before the last line is printed):
    LOBPCG with the facade as T. Each must give the same levels, C-point
    counts, formats and iterations on both, with a banded operator in
    every hierarchy; LOBPCG's eigenvalues must agree to 1e-4.
-8. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+8. The reference's other 3-D problems at 128^3 through the facade: the
+   27-pt Laplacian under PCG with the dynamic and the static DIA kernel
+   (D = 27, same iterations), difconv under GMRES(30), vardifconv under
+   PCG (phase 4 also holds both DIA kernels at D = 27 against plain).
+9. hypre's IJ path at 128^3: IJMatrix assembly (the CSR of
+   ``laplacian_3d_7pt`` bit for bit), BoomerAMG-PCG, ``refine_solve`` and
+   the two-float device refiner to a true residual of 1e-6 (the refiner
+   below the plain one), the device kernels of one two-float residual;
+   ``fem_stiffness_2d(1024)`` through IJ; MatrixMarket, IJ-ASCII and
+   ``.npz`` round trips at 32^3, exact.
+10. HybridSolver at 128^3 (DS-PCG, then the facade), MGR and BlockTridiag
+    under FlexGMRES(30) at n = 2 097 152.
+11. The new paths card against CPU at small sizes: every new generator,
+    the 32^3 IJ path with refinement, Hybrid, MGR and BlockTridiag.
+    Each solve of phases 8-10 must converge with a float64 true residual
+    under TRUE_RESIDUAL_LIMIT and launch its kernels; its iterations,
+    warm milliseconds and launches are printed, and each phase's
+    seconds.
+12. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -154,6 +172,12 @@ OPTION_CASES = [
     ("solveT", dict(relax="jacobi", relax_weight=0.8), "solveT"),
 ]
 OPTIONS_MAX_COARSE = 200
+# Phases 8-11: the 2-D problems' full grid (elasticity_2d, MGR's blocks,
+# fem_stiffness_2d: n = 2 097 152, 2 097 152 and ~1.05 M), and the sizes at
+# which the new paths run card against CPU
+N_2D = 1024
+N_SMALL = 32
+N_SMALL_2D = 64
 LOBPCG_PAIRS = 4
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
@@ -502,6 +526,47 @@ def check_kernels(H, torch, hier, fast):
             require(rel <= tol, f"{name} {dtype}: rel err {rel} > {tol}")
             if dtype == torch.float32:
                 results[name] = rec
+
+    # kernels 1 and 2 at D = 27: the 27-pt level-0 operator of phase 8
+    # (its rows go under other_shapes of the kernels line)
+    A27 = H.laplacian_3d_27pt(N_MAIN, N_MAIN, N_MAIN, dtype=torch.float32,
+                              device="cuda")
+    dia27 = dia_mod.try_dia(A27)
+    require(dia27 is not None and dia27.D == 27, "the 27-pt A is not D = 27")
+    csr27 = csr_of(A27, torch)
+    del A27
+    n, D = dia27.n_rows, dia27.D
+    offs27 = tuple(int(o) for o in dia27.offsets.cpu().tolist())
+    x = torch.from_numpy(rng.standard_normal(n)).to("cuda", torch.float32)
+    bms, bby = bound(D * n * 4 + 2 * n * 4, 2.0 * D * n, "float32")
+    lib = (csr27 @ x[:, None])[:, 0]
+    lib_ms = time_ms(lambda: csr27 @ x[:, None], torch)
+    results["d27"] = []
+    for name, kern, plain in (
+        ("dia_spmv",
+         lambda: dia_mod.dia_spmv(dia27.dvals, dia27.offsets, x, n,
+                                  dia27.margin),
+         lambda: dia_mod.dia_spmv_plain(dia27.dvals, dia27.offsets, x,
+                                        dia27.margin)),
+        ("dia_spmv_static",
+         lambda: dia_mod.dia_spmv_static(dia27.dvals, offs27, x, n),
+         lambda: dia_mod.dia_spmv_static_plain(dia27.dvals, offs27, x)),
+    ):
+        rel, ab = rel_err(kern(), plain(), torch)
+        rel_lib, _ = rel_err(kern(), lib, torch)
+        rec = {"check": name, "operator": "A27 (27-pt level 0)",
+               "shape": [D, n], "max_rel_err": rel, "max_abs_err": ab,
+               "tol": 0.0, "rel_err_vs_csr": rel_lib,
+               "ms": time_ms(kern, torch),
+               "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+               "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms}
+        log(json.dumps(rec))
+        require(ab == 0.0, f"{name} at D = 27 differs from the plain "
+                f"version by {ab}")
+        require(rel_lib <= 1e-5, f"{name} at D = 27: rel err {rel_lib} "
+                "against the CSR product")
+        results["d27"].append(rec)
+    del dia27, csr27
 
     # kernels 3 and 4 on every banded P and on the largest coarse A
     coarse = [li for li in range(1, len(fast.levels))
@@ -1142,6 +1207,593 @@ def device_setup_twice(H, torch):
     require(not differ, f"two device setups differ in {differ}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 8-11: the problem generators, the IJ path with refinement, and the
+# Hybrid, MGR and BlockTridiag solvers
+# ---------------------------------------------------------------------------
+
+
+def f64_of(A):
+    """A float64 copy of an EllMatrix on its device: the true residual's
+    operator."""
+    return dataclasses.replace(A, vals=A.vals.double())
+
+
+def manufactured_rhs(A, torch, seed: int):
+    """b = A x* for x* uniform in [0, 1) from ``seed``, formed in float64
+    (on the CPU, so that card and CPU runs get the same bits), rounded to
+    A's type, on A's device. The 2-D problems at 1024^2 use it: with
+    b = ones their solution grows to ~1e5 and the float32 floor of the
+    true residual to ~1e-2, above TRUE_RESIDUAL_LIMIT."""
+    x = torch.from_numpy(np.random.default_rng(seed).random(A.n_cols))
+    return f64_of(A.to("cpu")).mv(x).to(A.dtype).to(A.device)
+
+
+def uncounted(kernels, fn):
+    """fn() with the launch counts restored afterwards: timing and
+    profiling runs are not launches of the path."""
+    saved = dict(kernels.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        kernels.LAUNCHES.update(saved)
+
+
+def hold_dia(M, label, kernels, torch, held):
+    """One launch of M's DIA kernel (the one its ``mv`` takes) against the
+    plain version on the same x: the bits must agree. The counts are
+    restored, so the comparison does not count as a launch of the path."""
+    from hypre_tpu_torch.seq import dia as dia_mod
+
+    if not isinstance(M, dia_mod.DiaMatrix) or M.r_ptr is not None:
+        return
+    saved = dict(kernels.LAUNCHES)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        M.n_cols)).to(M.device, M.dtype)
+    got = M.mv(x)
+    kernels.LAUNCHES.update(saved)
+    want = dia_mod.dia_spmv_plain(M.dvals, M.offsets, x, M.margin)
+    ab = float((got - want).abs().max())
+    held.append({"kernel": "dia_spmv" if M.offsets_static is None
+                 else "dia_spmv_static", "operator": label,
+                 "shape": [M.D, M.n_rows], "max_abs_err": ab})
+    require(ab == 0.0, f"{label}: the DIA kernel differs from its plain "
+            f"version by {ab}")
+
+
+def timed(kernels, torch, fn):
+    """fn() cold, then warm; returns the warm call's (result, host ms after
+    a synchronize, launches)."""
+    fn()
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    return out, warm_ms, {k: kernels.LAUNCHES[k] - before[k]
+                          for k in kernels.LAUNCHES}
+
+
+def check_solve(what, torch, x, info, A64, b, warm_ms, grew, need=(),
+                extra=None):
+    """Log one solve and require convergence, a finite x, a float64 true
+    residual under TRUE_RESIDUAL_LIMIT and a launch of each kernel in
+    ``need``."""
+    it = int(info.iterations)
+    rec = {"solve": what, "iterations": it,
+           "converged": bool(info.converged),
+           "relative_residual": float(info.relative_residual),
+           "true_relative_residual": true_rel(A64, x, b),
+           "warm_ms": warm_ms, "launches": grew,
+           "launches_per_iteration": {k: v / max(it, 1)
+                                      for k, v in grew.items() if v}}
+    rec.update(extra or {})
+    log(json.dumps(rec))
+    require(rec["converged"], f"{what} did not converge")
+    require(bool(torch.isfinite(x).all()), f"{what}: non-finite x")
+    require(rec["true_relative_residual"] <= TRUE_RESIDUAL_LIMIT,
+            f"{what}: true relative residual "
+            f"{rec['true_relative_residual']} > {TRUE_RESIDUAL_LIMIT}")
+    for k in need:
+        require(grew[k] > 0, f"{what} never launched {k}")
+    return rec
+
+
+def facade_setup(H, torch, A, what, **knobs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amg = H.BoomerAMG(max_coarse_size=1500, **knobs).setup(A)
+    torch.cuda.synchronize()
+    log(json.dumps({"setup": what, "setup_s": time.perf_counter() - t0,
+                    "levels": level_sizes(amg.hierarchy),
+                    "formats": describe_formats(amg.hierarchy)}))
+    return amg
+
+
+def other_problems_phase(H, kernels, torch, held):
+    """Phase 8: the reference's other 3-D problems at 128^3, f32, b = ones,
+    the facade at max_coarse_size=1500: the 27-pt Laplacian under PCG
+    with the dynamic and with the static DIA kernel (D = 27), difconv
+    (cx = 1) under GMRES(30), vardifconv under PCG."""
+    import copy
+
+    kernels.reset_launches()
+    n = N_MAIN
+    b = torch.ones(n ** 3, dtype=torch.float32, device="cuda")
+    A = H.laplacian_3d_27pt(n, n, n, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    amg = H.BoomerAMG(max_coarse_size=1500).setup(A, optimize=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(json.dumps({"setup": "27-pt", "setup_s": setup_s,
+                    "levels": level_sizes(amg.hierarchy)}))
+    A64 = f64_of(A)
+    its = {}
+    for specialize in (False, True):
+        # the facade's own optimize step, once per DIA kernel
+        t0 = time.perf_counter()
+        facade = copy.copy(amg)
+        facade.specialize = specialize
+        facade.hierarchy = H.optimize_hierarchy(
+            amg.hierarchy, prefer_pallas=True, gather_precision=0,
+            specialize=specialize, device="cuda")
+        torch.cuda.synchronize()
+        optimize_s = time.perf_counter() - t0
+        fine = facade.hierarchy.levels[0].A
+        require(isinstance(fine, H.DiaMatrix) and fine.D == 27,
+                "the 27-pt level-0 A is not a D = 27 DiaMatrix")
+        hold_dia(fine, "27-pt level 0", kernels, torch, held)
+        (x, info), warm_ms, grew = timed(kernels, torch, lambda: H.pcg(
+            fine.mv, b, M=facade.precond(), rtol=FACADE_RTOL, maxiter=100))
+        kern = "dia_spmv_static" if specialize else "dia_spmv"
+        rec = check_solve(
+            f"27-pt pcg {'specialized' if specialize else 'dynamic'}",
+            torch, x, info, A64, b, warm_ms, grew,
+            need=(kern, "banded_spmv", "banded_spmv_t"),
+            extra={"optimize_s": optimize_s,
+                   "formats": describe_formats(facade.hierarchy)})
+        its[specialize] = rec["iterations"]
+    require(its[False] == its[True], f"27-pt: dynamic ({its[False]}) and "
+            f"specialized ({its[True]}) PCG took different iterations")
+    del amg, facade, A, A64, fine
+    torch.cuda.empty_cache()
+
+    # vardifconv's solution grows to ~1e2 in the 0.01 corner cubes with
+    # b = ones and its float32 true residual floors near 2e-2 (port on the
+    # CPU at 48^3), so it solves for a manufactured x*
+    for label, make, solver, rhs in (
+            ("difconv cx=1", lambda: H.difconv_3d_7pt(
+                n, n, n, cx=1.0, dtype=torch.float32, device="cuda"),
+             "gmres", lambda A: b),
+            ("vardifconv", lambda: H.vardifconv_3d(
+                n, n, n, dtype=torch.float32, device="cuda"), "pcg",
+             lambda A: manufactured_rhs(A, torch, 10))):
+        A = make()
+        amg = facade_setup(H, torch, A, label)
+        fine = amg.hierarchy.levels[0].A
+        hold_dia(fine, f"{label} level 0", kernels, torch, held)
+        bp = rhs(A)
+        kw = dict(GMRES_KW) if solver == "gmres" else {}
+        (x, info), warm_ms, grew = timed(kernels, torch, lambda: getattr(
+            H, solver)(fine.mv, bp, M=amg.precond(), rtol=FACADE_RTOL,
+                       maxiter=100, **kw))
+        check_solve(f"{label} {solver}", torch, x, info, f64_of(A), bp,
+                    warm_ms, grew, need=("dia_spmv",))
+        del amg, fine, A
+    return dict(kernels.LAUNCHES)
+
+
+def ex5_rows(n: int):
+    """The 7-pt Laplacian on an n^3 grid as ex5's row loop stages it: row
+    by row, the diagonal first, then the neighbours that exist (x, y, z;
+    minus before plus). Returns COO arrays in that order."""
+    N = n ** 3
+    idx = np.arange(N)
+    coords = (idx // (n * n), (idx // n) % n, idx % n)
+    strides = (n * n, n, 1)
+    cols = [idx]
+    vals = [np.full(N, 6.0)]
+    for d in range(3):
+        for sgn in (-1, 1):
+            ok = (coords[d] + sgn >= 0) & (coords[d] + sgn < n)
+            cols.append(np.where(ok, idx + sgn * strides[d], -1))
+            vals.append(np.full(N, -1.0))
+    cols, vals = np.stack(cols, axis=1), np.stack(vals, axis=1)
+    keep = cols >= 0
+    return (np.repeat(idx, 7).reshape(N, 7)[keep], cols[keep], vals[keep])
+
+
+def ij_assemble(H, n: int, device, dtype):
+    """IJMatrix.set_values with every row staged at once, assemble,
+    GetObject on ``device``; the rhs through IJVector."""
+    rows, cols, vals = ex5_rows(n)
+    ij = H.IJMatrix(n ** 3, n ** 3).set_values(rows, cols, vals).assemble()
+    b = H.IJVector(n ** 3).set_values(np.arange(n ** 3), np.ones(n ** 3)) \
+        .assemble().get_object(dtype=dtype, device=device)
+    return ij, ij.get_object(dtype=dtype, device=device), b
+
+
+def ij_phase(H, kernels, torch, held):
+    """Phase 9: hypre's IJ path at 128^3 f32 (ex5): assemble, the CSR of
+    laplacian_3d_7pt bit for bit, BoomerAMG-PCG; refine_solve (f64
+    residual on the card, the facade's PCG as the f32 solve) and the
+    device refiner with two-float residuals, both to a true residual of
+    1e-6; the FEM stiffness problem through IJ; file round trips."""
+    import shutil
+    import tempfile
+
+    from hypre_tpu_torch import io as tio
+    from hypre_tpu_torch.seq.dia import try_dia
+    from hypre_tpu_torch.seq.ell import csr_to_ell, ell_to_csr
+    from hypre_tpu_torch.seq.twofloat import dia_residual_2f
+
+    kernels.reset_launches()
+    n = N_MAIN
+    t0 = time.perf_counter()
+    ij, A, b = ij_assemble(H, n, "cuda", torch.float32)
+    torch.cuda.synchronize()
+    assemble_s = time.perf_counter() - t0
+    got = ij.get_csr()
+    want = ell_to_csr(H.laplacian_3d_7pt(n, n, n, dtype=torch.float32,
+                                         device="cuda"))
+    same = (np.array_equal(got.indptr, want.indptr)
+            and np.array_equal(got.indices, want.indices)
+            and np.array_equal(got.data, want.data.astype(np.float64)))
+    log(json.dumps({"ij": f"{n}^3 7-pt", "assemble_s": assemble_s,
+                    "nnz": got.nnz, "csr_equals_laplacian_3d_7pt": same}))
+    require(same, "the IJ-assembled CSR is not laplacian_3d_7pt's")
+    del want
+    A64 = f64_of(A)
+    amg = facade_setup(H, torch, A, "IJ 7-pt")
+    fine = amg.hierarchy.levels[0].A
+    hold_dia(fine, "IJ 7-pt level 0", kernels, torch, held)
+    (x, info), warm_ms, grew = timed(kernels, torch, lambda: H.pcg(
+        fine.mv, b, M=amg.precond(), rtol=FACADE_RTOL, maxiter=100))
+    check_solve("IJ 7-pt pcg", torch, x, info, A64, b, warm_ms, grew,
+                need=("banded_spmv", "banded_spmv_t"))
+
+    def solve_f32(r):
+        return H.pcg(fine.mv, r, M=amg.precond(), rtol=FACADE_RTOL,
+                     maxiter=100)
+
+    (xr, rel, inner), warm_ms, grew = timed(
+        kernels, torch, lambda: H.refine_solve(A, solve_f32, b, rtol=1e-6))
+    true_r = true_rel(A64, xr, b)
+    log(json.dumps({"solve": "refine_solve", "true_relative_residual": rel,
+                    "recomputed": true_r, "inner_iterations": inner,
+                    "x_dtype": str(xr.dtype), "warm_ms": warm_ms,
+                    "launches": grew}))
+    require(rel <= 1e-6 and true_r <= 1e-6,
+            f"refine_solve reached {rel} ({true_r}), not 1e-6")
+
+    D = try_dia(A)
+    require(D is not None and D.D == 7, "the IJ operator is not D = 7 DIA")
+    refined = {}
+    for two_f in (True, False):
+        inner_its = []
+
+        def inner(Af, r, _its=inner_its):
+            d, inf = H.pcg(Af.mv, r, M=amg.precond(), rtol=1e-4, maxiter=30)
+            _its.append(int(inf.iterations))
+            return d, inf
+
+        refine = H.make_device_refiner([inner] * 3, residual_2f=two_f)
+        (x_hi, x_lo, _), warm_ms, grew = timed(
+            kernels, torch, lambda: refine(D, b))
+        x64 = x_hi.double() + x_lo.double()
+        refined[two_f] = true_rel(A64, x64, b)
+        log(json.dumps({"solve": "device refiner", "residual_2f": two_f,
+                        "true_relative_residual": refined[two_f],
+                        "inner_iterations": inner_its[-3:],
+                        "warm_ms": warm_ms, "launches": grew}))
+    require(refined[True] <= 1e-6, f"the two-float refiner reached "
+            f"{refined[True]}, not 1e-6")
+    require(refined[True] < refined[False], "the two-float refiner is not "
+            "below the plain one")
+    hold_dia(D, "IJ 7-pt DiaMatrix (refiners)", kernels, torch, held)
+    # one two-float residual: its device kernels, counted by the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled():
+        dia_residual_2f(D, b, x_hi, x_lo)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dia_residual_2f(D, b, x_hi, x_lo)
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    log(json.dumps({
+        "dia_residual_2f": f"D = 7, n = {n ** 3}",
+        "device_kernels": uncounted(kernels, profiled),
+        "ms": uncounted(kernels, lambda: time_ms(
+            lambda: dia_residual_2f(D, b, x_hi, x_lo), torch, warmup=2,
+            reps=10)),
+        "plain_f32_residual_ms": uncounted(kernels, lambda: time_ms(
+            lambda: (b - D.mv(x_hi)) - D.mv(x_lo), torch, warmup=2,
+            reps=10))}))
+    del amg, fine, A, A64, D, x, xr, x_hi, x_lo
+    torch.cuda.empty_cache()
+
+    # the FEM stiffness problem through the port's IJ
+    t0 = time.perf_counter()
+    ij, _ = H.fem_stiffness_2d(m=N_2D)
+    Af = ij.get_object(dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    log(json.dumps({"fem_stiffness_2d": N_2D, "rows": Af.n_rows,
+                    "nnz": ij.get_csr().nnz,
+                    "generate_and_assemble_s": time.perf_counter() - t0}))
+    amg = facade_setup(H, torch, Af, "fem_stiffness_2d")
+    fine = amg.hierarchy.levels[0].A
+    bf = manufactured_rhs(Af, torch, 11)
+    (x, info), warm_ms, grew = timed(kernels, torch, lambda: H.pcg(
+        fine.mv, bf, M=amg.precond(), rtol=FACADE_RTOL, maxiter=100))
+    check_solve("fem_stiffness_2d pcg", torch, x, info, f64_of(Af), bf,
+                warm_ms, grew)
+    del amg, fine, Af, ij
+
+    # card -> file -> card at 32^3, exact
+    m = 32
+    A = H.laplacian_3d_7pt(m, m, m, dtype=torch.float32, device="cuda")
+    ref = ell_to_csr(A)
+    where = tempfile.mkdtemp(prefix=".io_roundtrip_", dir=HERE)
+    try:
+        for fmt in ("mtx", "ij", "npz"):
+            path = os.path.join(where, f"a.{fmt}")
+            if fmt == "mtx":
+                tio.write_matrix_market(path, A)
+            elif fmt == "ij":
+                tio.write_ij_ascii(path, A, base=1)
+            else:
+                tio.save_matrix(path, A)
+            back = (tio.load_matrix(path, device="cuda") if fmt == "npz"
+                    else csr_to_ell(tio.read_any_matrix(path),
+                                    dtype=torch.float32, device="cuda"))
+            csr = ell_to_csr(back)
+            ok = (np.array_equal(csr.indptr, ref.indptr)
+                  and np.array_equal(csr.indices, ref.indices)
+                  and np.array_equal(csr.data, ref.data))
+            log(json.dumps({"roundtrip": fmt, "grid": f"{m}^3",
+                            "bytes": os.path.getsize(path), "exact": ok}))
+            require(ok, f"the {fmt} round trip is not exact")
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    return dict(kernels.LAUNCHES)
+
+
+def block_system(H, torch, ng: int, device):
+    """tests/test_mgr_ams.py's 2x2 block system [[A, B], [B^T, 4 I]] at
+    m = ng^2 per block, assembled sparse: A the 5-pt Laplacian, B 0.1 on
+    the diagonal and 0.05 above it.
+
+    A is scaled by ((ng + 1) / 11)^2, 1 at the test's ng = 10, so that its
+    smallest eigenvalue stays the test's (8 sin^2(pi / 22) = 0.16). The
+    Schur complement onto the first block, A - B B^T / 4, is SPD only
+    while that eigenvalue exceeds |B B^T / 4| ~ 5.6e-3: unscaled, the
+    system is indefinite beyond ng = 58, and at ng = 512 BoomerAMG-PCG on
+    that Schur complement stalls at 1.3e-4 after 60 iterations where it
+    takes 5 on the plain Laplacian (port on the CPU, f32)."""
+    from hypre_tpu_torch.seq.csr import HostCSR
+    from hypre_tpu_torch.seq.ell import csr_to_ell
+
+    m = ng * ng
+    scale = ((ng + 1) / 11.0) ** 2
+    idx = np.arange(m)
+    i, j = idx // ng, idx % ng
+    rows, cols, vals = [idx, m + idx], [idx, m + idx], [
+        np.full(m, 4.0 * scale), np.full(m, 4.0)]
+    for ok, sh in ((i > 0, -ng), (i < ng - 1, ng), (j > 0, -1),
+                   (j < ng - 1, 1)):
+        rows.append(idx[ok])
+        cols.append(idx[ok] + sh)
+        vals.append(np.full(int(ok.sum()), -scale))
+    for r, c, v in ((idx, m + idx, 0.1), (idx[:-1], m + idx[1:], 0.05),
+                    (m + idx, idx, 0.1), (m + idx[1:], idx[:-1], 0.05)):
+        rows.append(r)
+        cols.append(c)
+        vals.append(np.full(r.size, v))
+    csr = HostCSR.from_coo(np.concatenate(rows), np.concatenate(cols),
+                           np.concatenate(vals), (2 * m, 2 * m))
+    return csr_to_ell(csr, dtype=torch.float32, device=device), m
+
+
+def reduction_runs(H, torch, device, n3d: int, ng: int, held=None,
+                   kernels=None):
+    """Hybrid at n3d^3 (7-pt, b = ones, cf_tol 0.9), MGR under
+    FlexGMRES(30) on the block system at ng^2 blocks, BlockTridiag under
+    FlexGMRES(30) on elasticity_2d(ng, ng) with index set 1 = the u dofs.
+    Returns one comparable record per solver (and, on the card, logs and
+    checks each solve).
+
+    FlexGMRES, not GMRES: the port's GMRES (the reference's) is
+    left-preconditioned and tests ||M (b - A x)||, which in float32 floors
+    far above rtol 1e-6 on these systems (on the card at n = 2 097 152:
+    1.3e-2 after 300 iterations, with the true residual at 1.0e-4; on the
+    CPU at 128^2 blocks: 2.1e-6 after 60), while FlexGMRES applies M on
+    the right, as hypre's GMRES does, and tests b - A x itself (6 and 7
+    iterations at 128^2)."""
+    from hypre_tpu_torch.seq.fastmv import optimize_operator
+
+    opt = True  # the CPU runs the card's formats by their plain versions
+    on_card = device == "cuda"
+    out = {}
+    cb = kernels is not None and on_card
+
+    class CountingAMG(H.BoomerAMG):
+        """The facade, noting the launch counts when its setup ends: the
+        launches after that are the AMG phase's."""
+
+        def setup(self, *args, **kw):
+            done = super().setup(*args, **kw)
+            if cb:
+                torch.cuda.synchronize()
+                self.launches_at_setup = dict(kernels.LAUNCHES)
+            return done
+
+    A = H.laplacian_3d_7pt(n3d, n3d, n3d, dtype=torch.float32, device=device)
+    b = torch.ones(A.n_rows, dtype=torch.float32, device=device)
+    amg = CountingAMG()
+    hy = H.HybridSolver(amg=amg).setup(A, optimize=opt, device=device)
+    for _ in range(2 if cb else 1):  # cold, then warm on the card
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = hy.solve(b, rtol=FACADE_RTOL)
+        if on_card:
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out["hybrid"] = {"dscg_iterations": hy.dscg_iterations,
+                     "amg_iterations": hy.amg_iterations,
+                     "levels": level_sizes(amg.hierarchy),
+                     "formats": describe_formats(amg.hierarchy)}
+    if cb:
+        grew = {k: kernels.LAUNCHES[k] - amg.launches_at_setup[k]
+                for k in kernels.LAUNCHES}
+        check_solve(f"hybrid {n3d}^3", torch, x, info, f64_of(A), b,
+                    seconds * 1e3, grew,
+                    need=("dia_spmv", "banded_spmv", "banded_spmv_t"),
+                    extra=dict(out["hybrid"], note="warm_ms: the whole "
+                               "warm call, its AMG setup included; "
+                               "launches: its AMG phase"))
+        require(hy.dscg_iterations > 0 and hy.amg_iterations > 0,
+                "Hybrid did not run both phases")
+    del hy, amg, A
+
+    A, m = block_system(H, torch, ng, device)
+    # C points: the Laplacian block (see ROADMAP.md: with the second block
+    # as C, GMRES(30) does not converge at 32^2)
+    t0 = time.perf_counter()
+    mgr = H.MGR(num_relax_sweeps=2).setup(A, [np.arange(m)], optimize=opt,
+                                          device=device)
+    setup_s = time.perf_counter() - t0
+    op = optimize_operator(A) if opt else A
+    bb = manufactured_rhs(A, torch, 12)
+    out["mgr"] = {"setup_s": setup_s, "levels": [lv.A.n_rows for lv in
+                                                 mgr.levels],
+                  "coarse_levels": level_sizes(mgr.coarse_amg.hierarchy),
+                  "formats": describe_formats(mgr.coarse_amg.hierarchy)}
+    if cb:
+        hold_dia(op, "MGR block system", kernels, torch, held)
+        (x, info), warm_ms, grew = timed(kernels, torch, lambda: H.flexgmres(
+            op.mv, bb, M=mgr.precond(), rtol=FACADE_RTOL, maxiter=200,
+            **GMRES_KW))
+        check_solve(f"mgr flexgmres n={2 * m}", torch, x, info, f64_of(A),
+                    bb, warm_ms, grew, need=("dia_spmv",), extra=out["mgr"])
+    else:
+        x, info = H.flexgmres(op.mv, bb, M=mgr.precond(), rtol=FACADE_RTOL,
+                              maxiter=200, device=device, **GMRES_KW)
+    out["mgr"]["iterations"] = int(info.iterations)
+    del mgr, A, op
+
+    E = H.elasticity_2d(ng, ng, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    bt = H.BlockTridiag().setup(E, np.arange(0, E.n_rows, 2), optimize=opt,
+                                device=device)
+    setup_s = time.perf_counter() - t0
+    op = optimize_operator(E) if opt else E
+    bb = manufactured_rhs(E, torch, 13)
+    out["block_tridiag"] = {
+        "setup_s": setup_s,
+        "levels": [level_sizes(B.hierarchy) for B in (bt.B11, bt.B22)],
+        "formats": [describe_formats(B.hierarchy) for B in (bt.B11, bt.B22)]}
+    if cb:
+        hold_dia(op, "elasticity_2d", kernels, torch, held)
+        (x, info), warm_ms, grew = timed(kernels, torch, lambda: H.flexgmres(
+            op.mv, bb, M=bt.precond(), rtol=FACADE_RTOL, maxiter=200,
+            **GMRES_KW))
+        check_solve(f"block_tridiag flexgmres n={E.n_rows}", torch, x, info,
+                    f64_of(E), bb, warm_ms, grew,
+                    need=("dia_spmv", "banded_spmv"),
+                    extra=out["block_tridiag"])
+    else:
+        x, info = H.flexgmres(op.mv, bb, M=bt.precond(), rtol=FACADE_RTOL,
+                              maxiter=200, device=device, **GMRES_KW)
+    out["block_tridiag"]["iterations"] = int(info.iterations)
+    for rec in out.values():
+        rec.pop("setup_s", None)
+    return out
+
+
+def reduction_phase(H, kernels, torch, held):
+    """Phase 10: Hybrid at 128^3, MGR and BlockTridiag at n = 2 097 152
+    (the 2-D ones for a manufactured solution)."""
+    kernels.reset_launches()
+    reduction_runs(H, torch, "cuda", N_MAIN, N_2D, held, kernels)
+    return dict(kernels.LAUNCHES)
+
+
+def small_card_vs_cpu(H, kernels, torch):
+    """Phase 11: the new paths at small sizes on the card and on the CPU
+    (plain versions), f32: each new generator gives the same ELL; the
+    32^3 IJ path with BoomerAMG-PCG and refine_solve, Hybrid at 32^3, MGR
+    and BlockTridiag at 64^2 blocks give the same levels, C points,
+    formats and iterations."""
+    from hypre_tpu_torch.seq.ell import ell_to_csr
+
+    gens = [("laplacian_1d", (1000,), {}),
+            ("laplacian_2d_9pt", (40, 41), {}),
+            ("laplacian_3d_27pt", (20, 21, 22), {}),
+            ("difconv_3d_7pt", (20, 21, 22), dict(cx=1.0, cy=0.5)),
+            ("rotated_anisotropy_2d", (40, 41), {}),
+            ("elasticity_2d", (N_SMALL_2D, N_SMALL_2D), {}),
+            ("vardifconv_3d", (24, 24, 24), {})]
+    for name, args, kw in gens:
+        A, B = (getattr(H, name)(*args, dtype=torch.float32, device=dev,
+                                 **kw) for dev in ("cuda", "cpu"))
+        same = (torch.equal(A.vals.cpu(), B.vals)
+                and torch.equal(A.cols.cpu(), B.cols)
+                and A.shifts == B.shifts)
+        log(json.dumps({"card_vs_cpu": f"generator {name}{args}",
+                        "same": same}))
+        require(same, f"{name}: card and CPU assemble different matrices")
+    for label, make in (
+            ("fem_stiffness_2d(32)", lambda: H.fem_stiffness_2d(m=32)[0]),
+            ("circuit_laplacian(4000)", lambda: H.circuit_laplacian(4000))):
+        csr = make().get_csr()
+        A = make().get_object(dtype=torch.float32, device="cuda")
+        back = ell_to_csr(A)
+        same = (np.array_equal(back.indices, csr.indices)
+                and np.array_equal(back.data, csr.data.astype(np.float32)))
+        log(json.dumps({"card_vs_cpu": label, "same": same}))
+        require(same, f"{label}: the card's ELL is not the host CSR")
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        _, A, b = ij_assemble(H, N_SMALL, device, torch.float32)
+        amg = H.BoomerAMG(max_coarse_size=OPTIONS_MAX_COARSE).setup(
+            A, optimize=True, device=device)
+        fine = amg.hierarchy.levels[0].A
+        x, info = H.pcg(fine.mv, b, M=amg.precond(), rtol=FACADE_RTOL,
+                        maxiter=100, device=device)
+
+        # the inner solves stop at 1e-4, away from the f32 floor, where
+        # card and CPU sums could part by an iteration (at rtol 1e-6 the
+        # 32^3 inner totals were 12 on the card and 13 on the CPU)
+        def solve_f32(r):
+            return H.pcg(fine.mv, r, M=amg.precond(), rtol=1e-4,
+                         maxiter=100, device=device)
+
+        _, rel, inner = H.refine_solve(A, solve_f32, b, rtol=1e-6)
+        rec = {"ij": {"levels": level_sizes(amg.hierarchy),
+                      "c_points": [int((lv.cf == 1).sum())
+                                   for lv in amg.hierarchy.levels],
+                      "formats": describe_formats(amg.hierarchy),
+                      "iterations": int(info.iterations),
+                      "refine_inner_iterations": inner,
+                      "refine_reached_1e-6": rel <= 1e-6}}
+        rec.update(reduction_runs(H, torch, device, N_SMALL, N_SMALL_2D))
+        out[device] = rec
+    for key in out["cuda"]:
+        log(json.dumps({"card_vs_cpu": key, "cuda": out["cuda"][key],
+                        "cpu": out["cpu"][key]}))
+        require(out["cuda"][key] == out["cpu"][key],
+                f"{key}: card and CPU differ")
+    require(out["cuda"]["ij"]["refine_reached_1e-6"],
+            "refine_solve at 32^3 did not reach 1e-6")
+
+
 def main() -> int:
     import torch
 
@@ -1188,6 +1840,8 @@ def main() -> int:
     at_new_shapes, _ = check_transfer_kernels(
         H, torch, fast_td[False].levels[0].P, fast_td[True].levels[0].P,
         hier_bp, fast_bp[False])
+    for rec in results.pop("d27"):
+        at_new_shapes[rec["check"]].append(rec)
     del hier, fast, hier_td, fast_td, hier_bp, fast_bp
     torch.cuda.empty_cache()
     l_facade, _ = run_facade_path(H, kernels, torch)
@@ -1196,11 +1850,23 @@ def main() -> int:
     device_setup_card_vs_cpu(H, kernels, torch)
     device_setup_twice(H, torch)
     facade_options_card_vs_cpu(H, kernels, torch)
+    held = []  # the new phases' DIA operators, each held against plain
+    new_phases = []
+    for phase in (other_problems_phase, ij_phase, reduction_phase):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        new_phases.append(phase(H, kernels, torch, held))
+        log(json.dumps({"phase": phase.__name__,
+                        "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    small_card_vs_cpu(H, kernels, torch)
+    log(json.dumps({"phase": "small_card_vs_cpu",
+                    "seconds": time.perf_counter() - t0}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     path_launches = [l_dyn, l_st, l_td[False], l_td[True], l_bp[False],
-                     l_bp[True], l_facade]
+                     l_bp[True], l_facade] + new_phases
     line = []
     for name, (src, replaces) in SOURCES.items():
         more = list(at_new_shapes.get(name, []))
@@ -1218,6 +1884,12 @@ def main() -> int:
         entry["other_shapes"] = [
             dict({"operator": m["operator"], "shape": m["shape"]},
                  **{k: m[k] for k in keys}) for m in more]
+        # the operators of phases 8-10, one launch each against plain
+        checked = [h for h in held if h["kernel"] == name]
+        if checked:
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [h["max_abs_err"] for h in checked])
+            entry["checked_on_path"] = checked
         line.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": line}), flush=True)

@@ -10,6 +10,7 @@ tensors. Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
 
+from hypre_tpu_torch.amg.block_tridiag import BlockTridiag
 from hypre_tpu_torch.amg.boomeramg import BoomerAMG
 from hypre_tpu_torch.amg.device_setup import setup_hierarchy_device
 from hypre_tpu_torch.amg.hierarchy import (
@@ -17,14 +18,23 @@ from hypre_tpu_torch.amg.hierarchy import (
     make_smoother, optimize_hierarchy, setup_hierarchy, unpad_hierarchy,
     with_operator_transposes,
 )
+from hypre_tpu_torch.amg.hybrid import HybridSolver
+from hypre_tpu_torch.amg.mgr import MGR
 from hypre_tpu_torch.core.config import ConvergenceInfo, resolve_device
 from hypre_tpu_torch.convert import ell_from_numpy, hierarchy_from_numpy
+from hypre_tpu_torch.ij import IJMatrix, IJVector
 from hypre_tpu_torch.krylov import (
     bicgstab, block_op, cgnr, cogmres, flexgmres, gmres, lgmres, lobpcg, pcg,
 )
 from hypre_tpu_torch.problems.laplacian import (
-    laplacian_2d_5pt, laplacian_3d_7pt,
+    difconv_3d_7pt, elasticity_2d, laplacian_1d, laplacian_2d_5pt,
+    laplacian_2d_9pt, laplacian_3d_7pt, laplacian_3d_27pt,
+    rotated_anisotropy_2d, stencil_to_ell, vardifconv_3d,
 )
+from hypre_tpu_torch.problems.unstructured import (
+    circuit_laplacian, fem_block_2d, fem_stiffness_2d,
+)
+from hypre_tpu_torch.refine import make_device_refiner, refine_solve
 from hypre_tpu_torch.seq.dia import DiaMatrix
 from hypre_tpu_torch.seq.ell import EllMatrix, csr_to_ell, ell_spmv
 from hypre_tpu_torch.seq.fastmv import BandedEll

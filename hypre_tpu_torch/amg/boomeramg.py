@@ -95,6 +95,10 @@ class BoomerAMG:
                                           repr=False)
     _transposed: bool = dataclasses.field(default=False, init=False,
                                           repr=False)
+    # the Jacobi weight of the levels without a CG-estimated one: the
+    # knob, or 1.0 when relax_weight < 0 asked for CG weights (the knob
+    # itself stays, so that every setup builds them again)
+    _weight: float = dataclasses.field(default=1.0, init=False, repr=False)
 
     def setup(self, A: EllMatrix, host_setup="auto", optimize="auto",
               device=None) -> "BoomerAMG":
@@ -144,17 +148,20 @@ class BoomerAMG:
                 hier = with_operator_transposes(hier)
         hier = hier.to(target)
 
-        if self.relax == "jacobi" and self.relax_weight < 0:
+        cg_weights = self.relax == "jacobi" and self.relax_weight < 0
+        self._weight = 1.0 if cg_weights else self.relax_weight
+        if cg_weights:
             # hypre's convention: relax_weight < 0 asks for per-level
             # weights 1/lambda_max from |relax_weight| CG steps
-            # (par_cg_relax_wt.c:300); lev.rw carries them from here on
+            # (par_cg_relax_wt.c:300); lev.rw carries them to both cycles.
+            # The reference overwrites the knob with 1.0 here, so that a
+            # second setup builds no weights.
             steps = max(int(-self.relax_weight), 5)
             hier = dataclasses.replace(hier, levels=[
                 dataclasses.replace(
                     lev, rw=1.0 / max_eig_estimate_cg(lev.A, lev.dinv,
                                                       steps)[0])
                 for lev in hier.levels])
-            self.relax_weight = 1.0
         if self.relax == "chebyshev" and self.cheby_eig_est > 0:
             # the CG/Lanczos lambda_max replaces the power estimate
             hier = dataclasses.replace(hier, levels=[
@@ -165,7 +172,7 @@ class BoomerAMG:
         self.hierarchy = hier
         self._transposed = False
         self._smoother = make_smoother(
-            self.relax, self.relax_weight, self.cheby_order,
+            self.relax, self._weight, self.cheby_order,
             self.cheby_ratio, relax_order=self.relax_order)
         return self
 
@@ -202,10 +209,11 @@ class BoomerAMG:
 
     def cycleT(self, f: torch.Tensor,
                u: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One transpose cycle (hypre_BoomerAMGCycleT). The first call
-        builds the transpose schedule of every banded level operator."""
+        """One transpose cycle (hypre_BoomerAMGCycleT), with the forward
+        cycle's Jacobi weights. The first call builds the transpose
+        schedule of every banded level operator."""
         return amg_cycle_t(self._hier_t(), f, u,
-                           relax_weight=self.relax_weight,
+                           relax_weight=self._weight,
                            num_sweeps=self.num_sweeps)
 
     def _iterate(self, cycle, apply_A, b, x0, rtol, maxiter):

@@ -418,8 +418,9 @@ def amg_cycle_t(
     the same transfers (A_{l+1}^T = P^T A_l^T P): every level product
     becomes ``A.mv_t`` and the coarse solve uses the transposed inverse;
     the smoother is damped Jacobi, as hypre forces there (diag(A^T) =
-    diag(A)). A banded level operator needs its transpose schedule
-    (``with_operator_transposes``)."""
+    diag(A)), with a level's own weight ``lev.rw`` where it is set (the
+    reference ignores it). A banded level operator needs its transpose
+    schedule (``with_operator_transposes``)."""
     if not hier.galerkin:
         raise ValueError(
             "solveT requires a Galerkin hierarchy (AIR stores R != P^T; "
@@ -429,13 +430,14 @@ def amg_cycle_t(
         if level == len(hier.levels):
             return hier.coarse_inv.T @ f
         lev = hier.levels[level]
+        w = relax_weight if lev.rw is None else lev.rw
         for _ in range(num_sweeps):
-            u = u + relax_weight * lev.dinv * (f - lev.A.mv_t(u))
+            u = u + w * lev.dinv * (f - lev.A.mv_t(u))
         rc = _restrict_level(lev, f - lev.A.mv_t(u))
         ec = torch.zeros(lev.P.vec_len_cols, dtype=f.dtype, device=f.device)
         u = u + lev.P.mv(descend(level + 1, rc, ec))
         for _ in range(num_sweeps):
-            u = u + relax_weight * lev.dinv * (f - lev.A.mv_t(u))
+            u = u + w * lev.dinv * (f - lev.A.mv_t(u))
         return u
 
     f, u, unpad = _pad_in(hier, f, u)

@@ -11,9 +11,11 @@ the operator and the preconditioner are plain callables on tensors:
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
+
+from hypre_tpu_torch.core.config import ConvergenceInfo, make_convergence_info
 
 LinearOp = Callable[[torch.Tensor], torch.Tensor]
 
@@ -25,3 +27,25 @@ def identity_precond(r: torch.Tensor) -> torch.Tensor:
 def finite(x: torch.Tensor) -> torch.Tensor:
     """NaN/Inf guard on a scalar (hypre pcg.c:391 checks sdotp sanity)."""
     return torch.isfinite(x)
+
+
+def zero_rhs(b: torch.Tensor, history: Optional[int] = None,
+             stagnated: Optional[bool] = None
+             ) -> Optional[tuple[torch.Tensor, ConvergenceInfo]]:
+    """The answer to b = 0, or None when b is not zero.
+
+    hypre's PCG sets x = b = 0 and returns at once, whatever the initial
+    guess (``krylov/pcg.c``); every driver here does the same: zeros, 0
+    iterations, relative residual 0, converged. The reference iterates
+    from a nonzero x0 to maxiter instead. ``history``: the length of the
+    res_history to return (slot 0 = 0, the rest -1), when logging.
+    ``stagnated``: the flag to report, when the driver reports one."""
+    if bool(torch.any(b != 0)):
+        return None
+    norms = None
+    if history is not None:
+        norms = torch.full((history,), -1.0, dtype=b.dtype, device=b.device)
+        norms[0] = 0.0
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    return torch.zeros_like(b), make_convergence_info(
+        0, zero, True, res_history=norms, stagnated=stagnated)

@@ -18,7 +18,7 @@ import torch
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
-from hypre_tpu_torch.krylov.base import LinearOp, identity_precond
+from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.seq.vector import dot
 
 
@@ -47,6 +47,10 @@ def bicgstab(
     iteration in ``info.res_history``."""
     device = resolve_device(device)
     b = b.to(device)
+    done = zero_rhs(b, maxiter + 1 if logging > 0 else None,
+                    False if recompute_residual else None)
+    if done is not None:
+        return done
     M = M or identity_precond
     x = torch.zeros_like(b) if x0 is None else x0.to(device)
     res_fn = residual_fn if residual_fn is not None else (lambda xv: b - A(xv))

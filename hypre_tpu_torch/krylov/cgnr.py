@@ -17,7 +17,7 @@ import torch
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
-from hypre_tpu_torch.krylov.base import LinearOp, identity_precond
+from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.seq.vector import dot
 
 
@@ -35,6 +35,9 @@ def cgnr(
     """Minimize ||b - A x||; ``At`` applies A^T."""
     device = resolve_device(device)
     b = b.to(device)
+    done = zero_rhs(b)
+    if done is not None:
+        return done
     M = M or identity_precond
     x = torch.zeros_like(b) if x0 is None else x0.to(device)
 

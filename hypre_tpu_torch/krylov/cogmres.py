@@ -21,7 +21,7 @@ import torch
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
-from hypre_tpu_torch.krylov.base import LinearOp, identity_precond
+from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.krylov.gmres import arnoldi_rotate, ls_update, safe_div
 from hypre_tpu_torch.seq.vector import norm2
 
@@ -44,6 +44,9 @@ def cogmres(
     reference."""
     device = resolve_device(device)
     b = b.to(device)
+    done = zero_rhs(b)
+    if done is not None:
+        return done
     M = M or identity_precond
     x = torch.zeros_like(b) if x0 is None else x0.to(device)
     n, dtype = b.shape[0], b.dtype
@@ -62,7 +65,7 @@ def cogmres(
         g = torch.zeros(k_dim + 1, dtype=dtype, device=device)
         g[0] = r_norm
         m = 0
-        for j in range(k_dim):
+        for j in range(min(k_dim, maxiter - it)):  # stop at maxiter
             Vj = V[: j + 1]
             w = M(A(V[j]))
             # one fused reduction, [V w ; w . w]

@@ -16,7 +16,7 @@ import torch
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
-from hypre_tpu_torch.krylov.base import LinearOp, identity_precond
+from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.krylov.gmres import (
     arnoldi_rotate, cgs_project, ls_update, safe_div,
 )
@@ -37,6 +37,9 @@ def flexgmres(
     """Solve A x = b to ||b - A x|| <= max(rtol * ||b||, atol)."""
     device = resolve_device(device)
     b = b.to(device)
+    done = zero_rhs(b)
+    if done is not None:
+        return done
     M = M or identity_precond
     x = torch.zeros_like(b) if x0 is None else x0.to(device)
     n, dtype = b.shape[0], b.dtype
@@ -56,7 +59,7 @@ def flexgmres(
         g = torch.zeros(k_dim + 1, dtype=dtype, device=device)
         g[0] = r_norm
         m = 0
-        for j in range(k_dim):
+        for j in range(min(k_dim, maxiter - it)):  # stop at maxiter
             Z[j] = M(V[j])
             w, h = cgs_project(V[: j + 1], A(Z[j]), 2)
             h_next = norm2(w)

@@ -25,7 +25,7 @@ import torch
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
-from hypre_tpu_torch.krylov.base import LinearOp, identity_precond
+from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.seq.vector import norm2
 
 
@@ -106,6 +106,9 @@ def gmres(
     gmres.c norms array)."""
     device = resolve_device(device)
     b = b.to(device)
+    done = zero_rhs(b, maxiter + 1 if logging > 0 else None)
+    if done is not None:
+        return done
     M = M or identity_precond
     x = torch.zeros_like(b) if x0 is None else x0.to(device)
     n, dtype = b.shape[0], b.dtype
@@ -130,7 +133,9 @@ def gmres(
         g = torch.zeros(k_dim + 1, dtype=dtype, device=device)
         g[0] = r_norm
         m = 0
-        for j in range(k_dim):
+        # hypre's Arnoldi loop stops at max_iter (krylov/gmres.c); the
+        # reference finishes the restart cycle and overshoots
+        for j in range(min(k_dim, maxiter - it)):
             w, h = cgs_project(V[: j + 1], M(A(V[j])), gs_passes)
             h_next = norm2(w)
             V[j + 1] = safe_div(w, h_next)

@@ -18,7 +18,7 @@ import torch
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
-from hypre_tpu_torch.krylov.base import LinearOp, identity_precond
+from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.krylov.gmres import (
     arnoldi_rotate, cgs_project, ls_update, safe_div,
 )
@@ -40,6 +40,9 @@ def lgmres(
     """Solve A x = b; the stopping semantics of ``gmres``."""
     device = resolve_device(device)
     b = b.to(device)
+    done = zero_rhs(b)
+    if done is not None:
+        return done
     M = M or identity_precond
     x = torch.zeros_like(b) if x0 is None else x0.to(device)
     n, dtype = b.shape[0], b.dtype
@@ -60,8 +63,9 @@ def lgmres(
         g = torch.zeros(total + 1, dtype=dtype, device=device)
         g[0] = r_norm
         m = 0
-        # the steps past the stored corrections would be inert
-        for j in range(k_dim + len(aug)):
+        # the steps past the stored corrections would be inert; none runs
+        # past maxiter (hypre's krylov/lgmres.c)
+        for j in range(min(k_dim + len(aug), maxiter - it)):
             u = V[j] if j < k_dim else aug[j - k_dim]
             w, h = cgs_project(V[: j + 1], M(A(u)), 2)
             h_next = norm2(w)

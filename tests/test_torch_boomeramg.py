@@ -18,6 +18,8 @@ The reference's setups dominate this module's time (each new level shape
 compiles), so they are made once per module and shared.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -369,3 +371,30 @@ def test_facade_options_that_stay_unported_raise():
             tA, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         H.BoomerAMG(setup_backend="native").setup(tA, device="cpu")
+
+
+def test_cg_weights_survive_a_second_setup_and_reach_cycle_t():
+    """relax_weight < 0 asks for per-level CG-estimated Jacobi weights.
+    The reference overwrites the knob with 1.0 in its first setup, so a
+    second setup on the same object builds no weights (12^3: rw 0.515 /
+    0.746 / 0.800, then None on every level), and its cycleT runs weight
+    1.0 whatever the levels hold. The port keeps the knob, builds the
+    weights at every setup, and its transpose cycle uses them: on a
+    symmetric A it is the forward cycle."""
+    tA = H.laplacian_3d_7pt(12, 12, 12, dtype=torch.float64, device="cpu")
+    amg = H.BoomerAMG(max_coarse_size=50, relax="jacobi", relax_weight=-10.0)
+    weights = []
+    for _ in range(2):
+        amg.setup(tA, device="cpu")
+        weights.append([round(float(lv.rw), 3) for lv in amg.hierarchy.levels])
+    assert weights == [[0.515, 0.746, 0.8]] * 2
+    assert amg.relax_weight == -10.0
+    f = torch.from_numpy(np.random.default_rng(0).standard_normal(12 ** 3))
+    fwd, bwd = amg.cycle(f), amg.cycleT(f)
+    assert rel_close(bwd, fwd, 1e-12)
+    plain = H.amg_cycle_t(amg.hierarchy, f, relax_weight=1.0)
+    assert rel_close(plain, fwd, 1e-12)  # lev.rw wins over the argument
+    unweighted = dataclasses.replace(amg.hierarchy, levels=[
+        dataclasses.replace(lv, rw=None) for lv in amg.hierarchy.levels])
+    assert not rel_close(H.amg_cycle_t(unweighted, f, relax_weight=1.0),
+                         fwd, 1e-3)

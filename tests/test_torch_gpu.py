@@ -439,3 +439,115 @@ def test_facade_host_setup_moves_the_hierarchy_to_the_card():
                     [(type(lv.A).__name__, type(lv.P).__name__)
                      for lv in hier.levels], int(info.iterations)))
     assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+def test_dia_kernels_at_d27_match_plain_on_card():
+    """The 27-pt Laplacian's operator (D = 27): both DIA kernels give the
+    plain version's bits, as at D = 7."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(27)
+    for dtype in (torch.float32, torch.float64):
+        A = H.laplacian_3d_27pt(20, 21, 22, dtype=dtype, device="cuda")
+        D = dia.try_dia(A)
+        assert D is not None and D.D == 27
+        x = torch.from_numpy(rng.standard_normal(A.n_rows)).to("cuda", dtype)
+        offs = tuple(D.offsets.tolist())
+        ref = dia.dia_spmv_plain(D.dvals, D.offsets, x, D.margin)
+        y_dyn = dia.dia_spmv(D.dvals, D.offsets, x, D.n_cols, D.margin)
+        y_st = dia.dia_spmv_static(D.dvals, offs, x, D.n_cols)
+        assert torch.equal(y_dyn, ref) and torch.equal(y_st, ref)
+        assert close(y_dyn.cpu(), (A.vals * x[A.cols.clamp(min=0).long()])
+                     .sum(dim=1).cpu(), 1e-5 if dtype == torch.float32
+                     else 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,args", [
+    ("laplacian_1d", (300,)), ("laplacian_2d_9pt", (30, 31)),
+    ("laplacian_3d_27pt", (10, 11, 12)), ("difconv_3d_7pt", (10, 11, 12)),
+    ("rotated_anisotropy_2d", (30, 31)), ("elasticity_2d", (24, 25)),
+    ("vardifconv_3d", (12, 13, 14))])
+def test_generators_on_card_equal_cpu(name, args):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for dtype in (torch.float32, torch.float64):
+        A = getattr(H, name)(*args, dtype=dtype, device="cuda")
+        B = getattr(H, name)(*args, dtype=dtype, device="cpu")
+        assert A.vals.is_cuda and A.shifts == B.shifts
+        assert torch.equal(A.vals.cpu(), B.vals)
+        assert torch.equal(A.cols.cpu(), B.cols)
+
+
+@pytest.mark.gpu
+def test_twofloat_residual_on_card_is_the_cpu_bits():
+    """No fused multiply-add on the card either: the two-float residual
+    and the refiner's first pass give the CPU's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.seq.twofloat import dia_residual_2f, two_prod
+
+    rng = np.random.default_rng(2)
+    A = H.laplacian_3d_7pt(12, 12, 12, dtype=torch.float32, device="cpu")
+    D = dia.try_dia(A)
+    vecs = [torch.from_numpy(rng.standard_normal(A.n_rows).astype(np.float32))
+            for _ in range(3)]
+    vecs[2] = vecs[2] * 1e-8
+    cpu = dia_residual_2f(D, *vecs)
+    card = dia_residual_2f(D.to("cuda"), *(v.cuda() for v in vecs))
+    for c, g in zip(cpu, card):
+        assert torch.equal(c, g.cpu())
+    p, e = two_prod(vecs[0].cuda() * 1e3, vecs[1].cuda())
+    exact = (vecs[0].double() * 1e3).float().double() * vecs[1].double()
+    assert close((p.double() + e.double()).cpu(), exact, 1e-14)
+
+
+@pytest.mark.gpu
+def test_ij_refine_hybrid_mgr_block_tridiag_on_card_equal_cpu():
+    """One new module of each kind, card against CPU (plain versions):
+    the IJ-assembled 16^3 Laplacian under refine_solve, HybridSolver,
+    MGR and BlockTridiag; the same iteration counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = {}
+    for device in ("cuda", "cpu"):
+        n = 16
+        lap = H.laplacian_3d_7pt(n, n, n, dtype=torch.float64, device="cpu")
+        from hypre_tpu_torch.seq.ell import ell_to_csr
+
+        csr = ell_to_csr(lap)
+        rows = np.repeat(np.arange(n ** 3), csr.row_nnz())
+        A = H.IJMatrix(n ** 3, n ** 3).set_values(
+            rows, csr.indices, csr.data).assemble().get_object(
+            dtype=torch.float32, device=device)
+        b = H.IJVector(n ** 3).set_values(np.arange(n ** 3), 1.0) \
+            .get_object(device=device)
+        amg = H.BoomerAMG(max_coarse_size=50).setup(A, optimize=True,
+                                                    device=device)
+
+        def solve_f32(r):
+            return H.pcg(A.mv, r, M=amg.precond(), rtol=1e-6, device=device)
+
+        x, rel, inner = H.refine_solve(A, solve_f32, b, rtol=1e-8)
+        assert x.device.type == device and rel <= 1e-8
+        hy = H.HybridSolver(cf_tol=0.5, amg=H.BoomerAMG(max_coarse_size=50)) \
+            .setup(A, optimize=True, device=device)
+        _, hi = hy.solve(b, rtol=1e-6)
+        m = 16
+        cpts = np.nonzero((np.arange(m * m) // m + np.arange(m * m) % m) % 2
+                          == 0)[0]
+        L = H.laplacian_2d_5pt(m, m, dtype=torch.float32, device=device)
+        mgr = H.MGR().setup(L, [cpts], optimize=True, device=device)
+        _, mi = mgr.solve(torch.ones(m * m, device=device), rtol=1e-4)
+        E = H.elasticity_2d(12, 12, dtype=torch.float32, device=device)
+        bt = H.BlockTridiag(amg_knobs=dict(max_coarse_size=16)).setup(
+            E, np.arange(0, E.n_rows, 2), optimize=True, device=device)
+        _, bi = H.flexgmres(E.mv, torch.ones(E.n_rows, device=device),
+                            M=bt.precond(), rtol=1e-5, device=device)
+        out[device] = (inner, hy.dscg_iterations, hy.amg_iterations,
+                       int(mi.iterations), int(bi.iterations),
+                       bool(hi.converged), bool(mi.converged),
+                       bool(bi.converged))
+    assert out["cuda"] == out["cpu"]
+    assert all(out["cuda"][5:])

@@ -1,5 +1,6 @@
 """hypre_tpu_torch stands alone: it imports neither JAX nor hypre_tpu,
-builds nothing at import time, and chip_smoke.py refuses to run without a
+nor scipy (which only fem_stiffness_2d imports, inside the call), builds
+nothing at import time, and chip_smoke.py refuses to run without a
 card."""
 
 import os
@@ -27,8 +28,13 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.amg.boomeramg, hypre_tpu_torch.amg.air\n"
         "import hypre_tpu_torch.precond.common, hypre_tpu_torch.krylov\n"
         "import hypre_tpu_torch.krylov.lobpcg, hypre_tpu_torch.krylov.cgnr\n"
+        "import hypre_tpu_torch.ij, hypre_tpu_torch.io\n"
+        "import hypre_tpu_torch.refine, hypre_tpu_torch.seq.twofloat\n"
+        "import hypre_tpu_torch.problems.unstructured\n"
+        "import hypre_tpu_torch.amg.hybrid, hypre_tpu_torch.amg.mgr\n"
+        "import hypre_tpu_torch.amg.block_tridiag\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'hypre_tpu')]\n"
+        "('jax', 'jaxlib', 'hypre_tpu', 'scipy')]\n"
         "assert not bad, bad\n"
         "assert not hypre_tpu_torch.kernels._libs\n"
     )
@@ -46,7 +52,9 @@ def test_source_scan_finds_no_jax_or_reference_import():
     assert {"slabops.py", "transfer_dia.py", "device_setup.py",
             "memory.py", "boomeramg.py", "air.py", "common.py", "gmres.py",
             "cogmres.py", "flexgmres.py", "lgmres.py", "bicgstab.py",
-            "cgnr.py", "lobpcg.py"} <= names
+            "cgnr.py", "lobpcg.py", "ij.py", "io.py", "refine.py",
+            "twofloat.py", "unstructured.py", "hybrid.py", "mgr.py",
+            "block_tridiag.py"} <= names
     for path in PORT_FILES:
         text = path.read_text()
         assert not pattern.search(text), path

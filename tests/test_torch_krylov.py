@@ -147,3 +147,113 @@ def test_amg_pcg_takes_the_reference_iterations(problem):
         [lv.A.n_rows for lv in ja.hierarchy.levels]
     assert int(ti.iterations) == int(ji.iterations) <= 7
     assert rel_close(tx, jx, 1e-10)
+
+
+# COGMRES with the delayed second Gram-Schmidt pass on the unpreconditioned
+# 7-pt Laplacian, random b from default_rng(0), rtol 1e-8:
+# (grid, x0, gs_passes, reference count, port count).
+COGMRES_PINNED = [
+    (8, None, 2, 41, 38),
+    (12, None, 2, 67, 74),
+    (8, "ones", 2, 38, 43),
+    (8, None, 1, 32, 32),
+    (12, None, 1, 59, 59),
+    (8, "ones", 1, 33, 33),
+]
+
+
+@pytest.mark.parametrize("m,x0,gs_passes,ref_count,port_count",
+                         COGMRES_PINNED,
+                         ids=[f"{c[0]}^3-x0={c[1]}-gs{c[2]}"
+                              for c in COGMRES_PINNED])
+def test_cogmres_count_gap_is_pinned(m, x0, gs_passes, ref_count,
+                                     port_count):
+    """COGMRES takes the norm of the orthogonalized vector from the
+    Pythagorean identity ||w||^2 - ||h||^2. A long-double replay of the
+    same recurrence (8^3, first restart) shows where the packages part:
+    at the first Arnoldi step the second pass's coefficients h2 are
+    rounding noise (exact norm 7.4e-18) and differ between the packages
+    by 75x and 290x, and from there the error of ||w_perp||^2 grows about
+    5x per step in both (reference 1.1e-15 at step 0, 2.1e-1 at step 20;
+    port 1.6e-16 and 2.8e-3), so neither follows the exact recurrence
+    past step ~20 and the restart count is set by the first rounding of
+    the dot products. The port's operations are the reference's: its
+    products over the first j+1 rows of V give the same bits as the
+    reference's products over the whole masked V, and its rotation loop
+    over i < j is the reference's masked loop without the no-op steps.
+    What differs is the summation order of XLA's and PyTorch's dot
+    products, so the gs_passes=2 counts are pinned with their gap, and
+    the single-pass counts, which do not amplify it, are equal."""
+    jA = j_lap7(m, m, m)
+    tA = H.laplacian_3d_7pt(m, m, m, dtype=torch.float64, device="cpu")
+    b = np.random.default_rng(0).standard_normal(m ** 3)
+    jx0 = None if x0 is None else jnp.ones(m ** 3)
+    tx0 = None if x0 is None else torch.ones(m ** 3, dtype=torch.float64)
+    _, ji = j_cogmres(jA.mv, jnp.asarray(b), x0=jx0, rtol=1e-8,
+                      maxiter=1000, gs_passes=gs_passes)
+    _, ti = H.cogmres(tA.mv, torch.from_numpy(b), x0=tx0, rtol=1e-8,
+                      maxiter=1000, gs_passes=gs_passes, device="cpu")
+    assert bool(ji.converged) and bool(ti.converged)
+    assert int(ji.iterations) == ref_count
+    assert int(ti.iterations) == port_count
+
+
+# (name, reference driver, port driver, arguments, the reference's count)
+MAXITER_CASES = [
+    ("gmres30", j_gmres, H.gmres, dict(k_dim=30), 60),
+    ("flexgmres30", j_flexgmres, H.flexgmres, dict(k_dim=30), 60),
+    ("cogmres30", j_cogmres, H.cogmres, dict(k_dim=30), 60),
+    ("lgmres20", j_lgmres, H.lgmres, dict(k_dim=20), 41),
+]
+
+
+@pytest.mark.parametrize("name,j_fn,t_fn,kw,ref_count", MAXITER_CASES,
+                         ids=[c[0] for c in MAXITER_CASES])
+def test_gmres_family_stops_at_maxiter(name, j_fn, t_fn, kw, ref_count):
+    """hypre's Arnoldi loop stops at max_iter (krylov/gmres.c). The
+    reference finishes the restart cycle first and overshoots: at 16^3,
+    random b from default_rng(0), rtol 1e-8, maxiter=35 it reports 60
+    iterations for GMRES(30), FlexGMRES(30) and COGMRES(30) and 41 for
+    LGMRES(20); the port departs from it on purpose."""
+    jA = j_lap7(16, 16, 16)
+    tA = H.laplacian_3d_7pt(16, 16, 16, dtype=torch.float64, device="cpu")
+    b = np.random.default_rng(0).standard_normal(16 ** 3)
+    _, ji = j_fn(jA.mv, jnp.asarray(b), rtol=1e-8, maxiter=35, **kw)
+    tx, ti = t_fn(tA.mv, torch.from_numpy(b), rtol=1e-8, maxiter=35,
+                  device="cpu", **kw)
+    assert int(ji.iterations) == ref_count  # the reference's fault
+    assert int(ti.iterations) == 35
+    assert not bool(ti.converged)
+    assert bool(torch.isfinite(tx).all())
+
+
+ZERO_RHS_DRIVERS = ["pcg", "bicgstab", "cgnr", "gmres", "flexgmres",
+                    "cogmres", "lgmres"]
+
+
+@pytest.mark.parametrize("name", ZERO_RHS_DRIVERS)
+def test_zero_rhs_with_nonzero_x0_returns_zeros(name):
+    """hypre's PCG sets x = b = 0 and returns at once when b = 0. The
+    reference iterates from a nonzero x0 to maxiter and reports
+    converged (PCG at 16^3, maxiter=50: 50 iterations, x ~ 1e-12); every
+    driver of the port returns zeros in 0 iterations, converged."""
+    tA = H.laplacian_3d_7pt(16, 16, 16, dtype=torch.float64, device="cpu")
+    b = torch.zeros(16 ** 3, dtype=torch.float64)
+    x0 = torch.ones(16 ** 3, dtype=torch.float64)
+    args = (tA.mv, tA.mv, b) if name == "cgnr" else (tA.mv, b)
+    x, info = getattr(H, name)(*args, x0=x0, maxiter=50, device="cpu")
+    assert int(info.iterations) == 0
+    assert bool(info.converged)
+    assert float(info.relative_residual) == 0.0
+    assert bool((x == 0).all())
+
+
+def test_zero_rhs_keeps_the_logging_arrays():
+    tA = H.laplacian_3d_7pt(8, 8, 8, dtype=torch.float64, device="cpu")
+    b = torch.zeros(512, dtype=torch.float64)
+    _, info = H.pcg(tA.mv, b, x0=torch.ones(512, dtype=torch.float64),
+                    maxiter=20, logging=1, recompute_residual=True,
+                    device="cpu")
+    assert info.res_history.shape == (21,)
+    assert float(info.res_history[0]) == 0.0
+    assert not bool(info.stagnated)
