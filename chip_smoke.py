@@ -79,7 +79,24 @@ Phases (any failure exits non-zero before the last line is printed):
     under TRUE_RESIDUAL_LIMIT and launch its kernels; its iterations,
     warm milliseconds and launches are printed, and each phase's
     seconds.
-12. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+12. The rest of amg/ at full width (~2.1 M unknowns), f32, rtol 1e-6:
+    ``SmoothedAggAMG`` and ``GSMG`` (max_coarse_size=1500) under PCG on
+    the 7-pt 128^3; ``SmoothedAggAMG`` with the three rigid-body modes as
+    its null space and nodal ``BlockAMG`` (``ell_to_bsr``) under PCG on
+    ``elasticity_2d(1024, 1024)``; ``BlockAMG`` on ``fem_block_2d(1024)``
+    under FlexGMRES(30); ``AMS`` on the curl-curl + mass operator and
+    ``ADS`` on the div-div + mass operator (lognormal coefficients) of the
+    88^3 hex complex under PCG (BlockAMG on elasticity and ADS in float64,
+    see ``aux_runs``); ``AME`` (block 4) on the curl-curl operator at
+    N_AME^3 (cut, see AME_CUT). Each prints its setup seconds, levels,
+    formats, iterations, warm ms, true residual and launches; each solve
+    must converge under TRUE_RESIDUAL_LIMIT and, wherever a facade built
+    kernel formats (float32), launch a ported kernel; AME's eigenvalues
+    must lie above the gradient cluster, converge and belong to
+    divergence-free vectors. Then the same paths at small sizes on the
+    card and on the CPU: equal levels, formats and iterations, and AME's
+    eigenvalues against a dense oracle.
+13. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -179,6 +196,33 @@ N_2D = 1024
 N_SMALL = 32
 N_SMALL_2D = 64
 LOBPCG_PAIRS = 4
+# Phase 12: the slice's solvers at full width (the hex complex at N_HEX:
+# 2 091 144 edges, 2 067 648 faces; AME at N_AME), and the sizes at which
+# the same paths run card against CPU. The paths must launch one of
+# AUX_KERNELS wherever a facade optimized a hierarchy.
+N_HEX = 88
+# AME's size, halved from N_HEX while the path alone took more than 120 s
+# on an NVIDIA H100 80GB HBM3 at 700 W: at 88^3 its setup had not ended
+# after ~1500 s, at 44^3 it took 172 s (setup 159.5, solve 12.6). The AMS
+# is built on the penalized A + sigma G G^T, whose nodal Pi operators
+# coarsen slowly while their rows widen (k = 25 to 1765 at 44^3).
+N_AME = 22
+AME_CUT = ("AME at 22^3: the path took >1500 s at 88^3 (setup unfinished) "
+           "and 172 s at 44^3 on the H100, over its 120 s")
+AME_BLOCK = 4
+# AME's residual test, absolute where |lambda| < 1. The f32 operator's
+# float64 outer loop floors near 1e-5: the f32 nodal cycle leaves the
+# projection's CG a gradient part of ~1e-7, which the penalty sigma G G^T
+# magnifies (the reference as well; port on the CPU at 6^3, tol 1e-6:
+# residual norms 5e-6-1e-5 after 200 iterations).
+AME_TOL = 1e-4
+AME_EIG_RTOL = 1e-4
+AUX_RTOL = FACADE_RTOL
+# ADS in f64 takes 308 PCG iterations at 88^3 on an NVIDIA H100 80GB HBM3
+# at 700 W: the sigma = 2 lognormal coefficients span ~1e9 there
+AUX_MAXITER = 1000
+AUX_SMALL = dict(n3d=20, n2d=48, fem_m=24, nhex=6, ame_hex=6)
+AUX_KERNELS = ("dia_spmv", "banded_spmv", "banded_spmv_t")
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -1794,6 +1838,299 @@ def small_card_vs_cpu(H, kernels, torch):
             "refine_solve at 32^3 did not reach 1e-6")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the rest of amg/ at full width
+# ---------------------------------------------------------------------------
+
+
+def rigid_body_modes(nx: int, ny: int, torch, device):
+    """The three rigid-body modes of elasticity_2d(nx, ny), node-major
+    (node (i, j) owns unknowns 2 (i ny + j) + {0, 1}): u- and
+    v-translation, and the rotation (-y, x) at x = i/nx, y = j/ny. The
+    near-nullspace MLI's SetNullSpace gives smoothed aggregation."""
+    i, j = (g.ravel() for g in np.meshgrid(np.arange(nx), np.arange(ny),
+                                           indexing="ij"))
+    B = np.zeros((2 * nx * ny, 3))
+    B[0::2, 0] = 1.0
+    B[1::2, 1] = 1.0
+    B[0::2, 2] = -j / ny
+    B[1::2, 2] = i / nx
+    return torch.from_numpy(B).to(device=device, dtype=torch.float32)
+
+
+def aux_levels(amg) -> dict:
+    """Level sizes (the aggregate or C-point counts are the next level's
+    size) and formats of one facade hierarchy."""
+    return {"levels": level_sizes(amg.hierarchy),
+            "formats": describe_formats(amg.hierarchy)}
+
+
+def ams_levels(ams) -> dict:
+    """The inner facades' levels and formats (ADS's inner AMS has no
+    gradient facade)."""
+    return {"G": None if ams.B_G is None else aux_levels(ams.B_G),
+            "Pi": [aux_levels(B) for B in ams.B_Pi]}
+
+
+def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
+             ame_hex: int, held=None, kernels=None) -> dict:
+    """Every solver of the slice on ``device``, rtol AUX_RTOL, f32 but for
+    two f64 paths (below): SA and GSMG on the 7-pt n3d^3 (b = ones), SA
+    with the rigid-body modes and BlockAMG on elasticity_2d(n2d, n2d),
+    BlockAMG on fem_block_2d(fem_m), AMS on the curl-curl and ADS on the
+    div-div problem of the nhex^3 hex complex, AME on the curl-curl
+    problem at ame_hex^3. The 2-D, FEM and hex problems solve for a
+    manufactured x*. Returns one comparable record per path; with
+    ``kernels`` on the card it also times, logs and checks each solve
+    (check_solve) and requires a launch of a ported kernel wherever a
+    facade built kernel formats.
+
+    fem_block_2d runs GMRES at the small size, as the reference's test
+    does, and FlexGMRES(30) at full width: the left-preconditioned GMRES
+    floors in f32 there (``reduction_runs``)."""
+    from hypre_tpu_torch.amg.ads import ADS
+    from hypre_tpu_torch.amg.ame import AME
+    from hypre_tpu_torch.amg.ams import AMS, f64
+    from hypre_tpu_torch.amg.block_amg import BlockAMG
+    from hypre_tpu_torch.amg.gsmg import GSMG
+    from hypre_tpu_torch.problems import maxwell
+    from hypre_tpu_torch.seq.bsr import ell_to_bsr
+    from hypre_tpu_torch.seq.fastmv import optimize_operator
+
+    on_card = device == "cuda"
+    cb = on_card and kernels is not None
+    mcs = 1500 if cb else OPTIONS_MAX_COARSE
+    f32 = torch.float32
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def setup(make):
+        sync()
+        t0 = time.perf_counter()
+        obj = make()
+        sync()
+        return obj, time.perf_counter() - t0
+
+    def solve(key, label, A, op, b, M, rec, solver="pcg", need=True,
+              once=False):
+        kw = dict(GMRES_KW) if "gmres" in solver else {}
+
+        def run():
+            return getattr(H, solver)(op.mv, b, M=M, rtol=AUX_RTOL,
+                                      maxiter=AUX_MAXITER, device=device,
+                                      **kw)
+
+        if cb:
+            hold_dia(op, label, kernels, torch, held)
+            if once:  # a long solve: its first call only
+                before = dict(kernels.LAUNCHES)
+                (x, info), s = setup(run)
+                ms = s * 1e3
+                grew = {k: kernels.LAUNCHES[k] - before[k]
+                        for k in kernels.LAUNCHES}
+                rec = dict(rec, note="warm_ms: the first call")
+            else:
+                (x, info), ms, grew = timed(kernels, torch, run)
+            check_solve(label, torch, x, info, f64_of(A), b, ms, grew,
+                        extra=rec)
+            if need:
+                require(any(grew[k] > 0 for k in AUX_KERNELS),
+                        f"{label} launched none of {AUX_KERNELS}")
+        else:
+            x, info = run()
+            require(bool(info.converged), f"{label} on {device} did not "
+                    "converge")
+        rec["iterations"] = int(info.iterations)
+        out[key] = rec
+
+    def done(key, t0):
+        if on_card:
+            torch.cuda.empty_cache()
+        if cb:
+            log(json.dumps({"aux_path": key,
+                            "seconds": time.perf_counter() - t0}))
+
+    # smoothed aggregation and GSMG on the 7-pt Laplacian
+    A = H.laplacian_3d_7pt(n3d, n3d, n3d, dtype=f32, device=device)
+    b = torch.ones(A.n_rows, dtype=f32, device=device)
+    for key, cls in (("sa", H.SmoothedAggAMG), ("gsmg", GSMG)):
+        t0 = time.perf_counter()
+        amg, s = setup(lambda: cls(max_coarse_size=mcs).setup(
+            A, optimize=True, device=device))
+        rec = dict(aux_levels(amg), setup_s=s)
+        fine = amg.hierarchy.levels[0].A
+        solve(key, f"{key} pcg {n3d}^3", A, fine, b, amg.precond(), rec)
+        del amg, fine
+        done(key, t0)
+    del A, b
+
+    # smoothed aggregation with the rigid-body modes, and nodal block AMG,
+    # on elasticity
+    t0 = time.perf_counter()
+    E = H.elasticity_2d(n2d, n2d, dtype=f32, device=device)
+    op = optimize_operator(E)
+    bE = manufactured_rhs(E, torch, 14)
+    amg, s = setup(lambda: H.SmoothedAggAMG(
+        max_coarse_size=mcs, null_space=rigid_body_modes(
+            n2d, n2d, torch, device)).setup(E, optimize=True, device=device))
+    solve("sa_elasticity", f"sa rigid-body pcg elasticity {n2d}^2", E, op,
+          bE, amg.precond(), dict(aux_levels(amg), setup_s=s))
+    del amg
+    done("sa_elasticity", t0)
+
+    del E, op, bE
+    # in float64: in float32 the f32 Galerkin products of the nodal
+    # hierarchy (the reference's too) leave PCG at 6.4e-4 after 200 and
+    # 6.8e-4 after 1000 iterations at 1024^2 on the H100 (61 against 32
+    # iterations at 512^2, port on the CPU)
+    t0 = time.perf_counter()
+    E = H.elasticity_2d(n2d, n2d, dtype=torch.float64, device=device)
+    bam, s = setup(lambda: BlockAMG().setup(ell_to_bsr(E, 2),
+                                            device=device))
+    rec = {"levels": [lv.A.n_rows for lv in bam.levels]
+           + [bam.coarse_inv.shape[0]], "setup_s": s, "dtype": "float64"}
+    solve("block_amg", f"block_amg pcg elasticity {n2d}^2 f64", E,
+          optimize_operator(E), manufactured_rhs(E, torch, 14),
+          bam.precond(), rec, need=False)
+    del bam, E
+    done("block_amg", t0)
+
+    t0 = time.perf_counter()
+    F = H.fem_block_2d(m=fem_m)[0].get_object(dtype=f32, device=device)
+    gen_s = time.perf_counter() - t0
+    bam, s = setup(lambda: BlockAMG().setup(ell_to_bsr(F, 2), device=device))
+    rec = {"levels": [lv.A.n_rows for lv in bam.levels]
+           + [bam.coarse_inv.shape[0]], "setup_s": s, "mesh_s": gen_s}
+    solve("block_amg_fem", f"block_amg fem_block_2d({fem_m})", F,
+          optimize_operator(F), manufactured_rhs(F, torch, 16),
+          bam.precond(), rec, solver="flexgmres" if cb else "gmres",
+          need=False)
+    del bam, F
+    done("block_amg_fem", t0)
+
+    # the auxiliary-space solvers on the hex complex
+    t0 = time.perf_counter()
+    A, G, xyz = maxwell.curl_curl_3d(nhex, dtype=f32, device=device)
+    ams, s = setup(lambda: AMS().setup(A, G, xyz, device=device,
+                                       optimize=True))
+    solve("ams", f"ams pcg curl-curl {nhex}^3", A, optimize_operator(A),
+          manufactured_rhs(A, torch, 17), ams.precond(),
+          dict(ams_levels(ams), setup_s=s, edges=A.n_rows))
+    del ams, A, G
+    done("ams", t0)
+
+    # ADS in float64: in float32 its cycle (f32 hierarchies of operators
+    # whose lognormal coefficients span ~1e9 at 88^3) is too inexact for
+    # CG: 8.3e-5 after 1000 iterations at 88^3 on the H100; 219 against
+    # 106 iterations at 24^3, and f64 PCG with the f32 cycle 4.9e-6 after
+    # 1000 (port on the CPU). The kernel formats are float32, so this
+    # path runs PyTorch ELL products.
+    t0 = time.perf_counter()
+    A, C, G, xyz = maxwell.div_div_3d(nhex, dtype=torch.float64,
+                                      device=device)
+    ads, s = setup(lambda: ADS().setup(A, C, G, xyz, device=device,
+                                       optimize=True))
+    rec = {"ams": ams_levels(ads.ams),
+           "Pi": [aux_levels(B) for B in ads.B_Pi], "setup_s": s,
+           "faces": A.n_rows, "dtype": "float64"}
+    solve("ads", f"ads pcg div-div {nhex}^3 f64", A, optimize_operator(A),
+          manufactured_rhs(A, torch, 18), ads.precond(), rec, need=False,
+          once=True)
+    del ads, A, C, G
+    done("ads", t0)
+
+    t0 = time.perf_counter()
+    A, G, xyz = maxwell.curl_curl_3d(ame_hex, dtype=f32, device=device)
+    ame, s = setup(lambda: AME(block_size=AME_BLOCK, tol=AME_TOL).setup(
+        A, G, xyz, device=device, optimize=True))
+    if cb:
+        before = dict(kernels.LAUNCHES)
+    (lam, X, rn), solve_s = setup(lambda: ame.solve(seed=0))
+    X64 = X.double()
+    div = float(torch.linalg.matrix_norm(f64(ame._Gt).mv(X64))
+                / torch.linalg.matrix_norm(X64))
+    rec = {"ams": ams_levels(ame.ams), "edges": A.n_rows,
+           "eigenvalues": lam.tolist(), "residual_norms": rn.tolist(),
+           "div_free": div, "setup_s": s, "solve_s": solve_s}
+    if cb and ame_hex == N_AME:
+        rec["size"] = AME_CUT
+    if cb:
+        grew = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        log(json.dumps(dict(rec, solve=f"ame block {AME_BLOCK} curl-curl "
+                            f"{ame_hex}^3", launches=grew)))
+        require(any(grew[k] > 0 for k in AUX_KERNELS),
+                f"AME launched none of {AUX_KERNELS}")
+    # the gradient fields sit at beta = 0.01; the divergence-free ones
+    # above it by the curl-curl eigenvalue, (pi / nhex)^2 or more
+    lam_ok = bool(torch.isfinite(lam).all()) and float(lam.min()) > 0.0105
+    require(lam_ok, f"AME eigenvalues {lam.tolist()} not above the "
+            "gradient cluster at beta = 0.01")
+    require(bool((rn <= ame.tol * torch.clamp(lam.abs(), min=1.0)).all()),
+            f"AME did not converge: residual norms {rn.tolist()}")
+    require(div <= 1e-5, f"AME eigenvectors not divergence-free: {div}")
+    out["ame"] = rec
+    del ame, A, G, X, X64
+    done("ame", t0)
+    for rec in out.values():
+        for k in ("setup_s", "solve_s", "mesh_s"):
+            rec.pop(k, None)
+    return out
+
+
+def aux_phase(H, kernels, torch, held):
+    """Phase 12: the slice's solvers at full width on the card."""
+    kernels.reset_launches()
+    aux_runs(H, torch, "cuda", N_MAIN, N_2D, N_2D, N_HEX, N_AME, held,
+             kernels)
+    return dict(kernels.LAUNCHES)
+
+
+def ame_oracle(torch, nhex: int, k: int):
+    """The k smallest eigenvalues of the curl-curl operator at nhex^3 on
+    the divergence-free complement, densely in f64 (the reference test's
+    deflation oracle): the eigenvalues of P A P above 1.5 beta, P the
+    projector onto range(G)'s complement."""
+    from hypre_tpu_torch.problems import maxwell
+    from hypre_tpu_torch.seq.ell import ell_to_csr
+
+    A, G, _ = maxwell.curl_curl_3d(nhex, dtype=torch.float64, device="cpu")
+    Ad, Gd = ell_to_csr(A).to_dense(), ell_to_csr(G).to_dense()
+    U, sv, _ = np.linalg.svd(Gd, full_matrices=False)
+    Q = U[:, sv > 1e-10 * sv.max()]
+    P = np.eye(Ad.shape[0]) - Q @ Q.T
+    w = np.linalg.eigvalsh(P @ Ad @ P)
+    return np.sort(w[w > 0.015])[:k]
+
+
+def aux_card_vs_cpu(H, kernels, torch):
+    """The slice's paths at AUX_SMALL on the card and on the CPU (plain
+    versions): levels, formats and iterations equal, AME's eigenvalues to
+    AME_EIG_RTOL of each other and of the dense oracle."""
+    out = {dev: aux_runs(H, torch, dev, **AUX_SMALL)
+           for dev in ("cuda", "cpu")}
+    lam = {dev: np.array(out[dev]["ame"].pop("eigenvalues"))
+           for dev in out}
+    for dev in out:
+        out[dev]["ame"].pop("residual_norms")
+        out[dev]["ame"].pop("div_free")
+    want = ame_oracle(torch, AUX_SMALL["ame_hex"], AME_BLOCK)
+    gap = float(np.abs(lam["cuda"] - lam["cpu"]).max() / want.max())
+    err = float(np.abs(np.sort(lam["cpu"]) - want).max() / want.max())
+    log(json.dumps({"card_vs_cpu": "ame", "cuda": lam["cuda"].tolist(),
+                    "cpu": lam["cpu"].tolist(), "oracle": want.tolist(),
+                    "gap": gap, "oracle_err": err}))
+    require(gap <= AME_EIG_RTOL and err <= AME_EIG_RTOL,
+            "AME: card, CPU and oracle eigenvalues disagree")
+    for key in out["cuda"]:
+        log(json.dumps({"card_vs_cpu": key, "cuda": out["cuda"][key],
+                        "cpu": out["cpu"][key]}))
+        require(out["cuda"][key] == out["cpu"][key],
+                f"{key}: card and CPU differ")
+
+
 def main() -> int:
     import torch
 
@@ -1861,6 +2198,15 @@ def main() -> int:
     t0 = time.perf_counter()
     small_card_vs_cpu(H, kernels, torch)
     log(json.dumps({"phase": "small_card_vs_cpu",
+                    "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_phases.append(aux_phase(H, kernels, torch, held))
+    log(json.dumps({"phase": "aux_phase",
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    aux_card_vs_cpu(H, kernels, torch)
+    log(json.dumps({"phase": "aux_card_vs_cpu",
                     "seconds": time.perf_counter() - t0}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -20,8 +20,11 @@ from hypre_tpu_torch.amg.hierarchy import (
 )
 from hypre_tpu_torch.amg.hybrid import HybridSolver
 from hypre_tpu_torch.amg.mgr import MGR
+from hypre_tpu_torch.amg.smoothed_agg import SmoothedAggAMG
 from hypre_tpu_torch.core.config import ConvergenceInfo, resolve_device
-from hypre_tpu_torch.convert import ell_from_numpy, hierarchy_from_numpy
+from hypre_tpu_torch.convert import (
+    bsr_from_numpy, ell_from_numpy, hierarchy_from_numpy,
+)
 from hypre_tpu_torch.ij import IJMatrix, IJVector
 from hypre_tpu_torch.krylov import (
     bicgstab, block_op, cgnr, cogmres, flexgmres, gmres, lgmres, lobpcg, pcg,

@@ -120,24 +120,8 @@ class BoomerAMG:
         if optimize == "auto":
             optimize = target.type == "cuda"
         where = torch.device("cpu") if host_setup else target
-        hier = setup_hierarchy(
-            A.to(where),
-            strength_threshold=self.strength_threshold,
-            max_row_sum=self.max_row_sum,
-            max_levels=self.max_levels,
-            max_coarse_size=self.max_coarse_size,
-            p_max_elmts=self.p_max_elmts,
-            trunc_factor=self.trunc_factor,
-            interp=self.interp,
-            relax=self.relax,
-            coarsen=self.coarsen_type,
-            interp_jacobi_passes=self.interp_jacobi_passes,
-            setup_backend=self.setup_backend,
-            agg_num_levels=self.agg_num_levels,
-            restrict_type=self.restrict_type,
-            nongalerkin_tol=self.nongalerkin_tol,
-            device=where,
-        )
+        self._do_setup(A.to(where), where)
+        hier = self.hierarchy
         if optimize:
             hier = optimize_hierarchy(
                 hier, prefer_pallas=True,
@@ -175,6 +159,31 @@ class BoomerAMG:
             self.relax, self._weight, self.cheby_order,
             self.cheby_ratio, relax_order=self.relax_order)
         return self
+
+    def _do_setup(self, A: EllMatrix, where: torch.device) -> None:
+        """Build ``self.hierarchy`` for A on ``where`` (the reference's
+        ``boomeramg.py:247-268``). Subclasses with a setup of their own
+        (smoothed aggregation, GSMG) override this hook; ``setup`` then
+        optimizes, moves, weights and binds a smoother to whatever it
+        built."""
+        self.hierarchy = setup_hierarchy(
+            A,
+            strength_threshold=self.strength_threshold,
+            max_row_sum=self.max_row_sum,
+            max_levels=self.max_levels,
+            max_coarse_size=self.max_coarse_size,
+            p_max_elmts=self.p_max_elmts,
+            trunc_factor=self.trunc_factor,
+            interp=self.interp,
+            relax=self.relax,
+            coarsen=self.coarsen_type,
+            interp_jacobi_passes=self.interp_jacobi_passes,
+            setup_backend=self.setup_backend,
+            agg_num_levels=self.agg_num_levels,
+            restrict_type=self.restrict_type,
+            nongalerkin_tol=self.nongalerkin_tol,
+            device=where,
+        )
 
     def _hier(self) -> AMGHierarchy:
         if self.hierarchy is None:

@@ -118,11 +118,15 @@ def unpad_hierarchy(hier: AMGHierarchy) -> AMGHierarchy:
     )
 
 
+def _reciprocal(d: torch.Tensor) -> torch.Tensor:
+    """1 / d where d != 0, else 0 (the inverse diagonal of a smoother)."""
+    nz = d != 0
+    return torch.where(nz, 1.0 / torch.where(nz, d, torch.ones_like(d)),
+                       torch.zeros_like(d))
+
+
 def _level_vectors(A: EllMatrix, need_cheby: bool):
-    diag = A.diagonal()
-    nz = diag != 0
-    dinv = torch.where(nz, 1.0 / torch.where(nz, diag, torch.ones_like(diag)),
-                       torch.zeros_like(diag))
+    dinv = _reciprocal(A.diagonal())
     l1inv = 1.0 / l1_norms(A)
     if need_cheby:
         lmax = max_eig_estimate(A, dinv)

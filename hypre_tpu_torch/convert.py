@@ -2,9 +2,10 @@
 
 The port imports nothing of the JAX package, so state built there (or
 anywhere else) comes across as numpy arrays: ``ell_from_numpy`` for one
-ELL matrix and ``hierarchy_from_numpy`` for a whole AMG hierarchy that the
-caller flattened into a dict of arrays (a ``TransferDia`` level and the
-true sizes of a row-padded hierarchy included). All place the result on ``device``
+ELL matrix, ``bsr_from_numpy`` for one block matrix, and
+``hierarchy_from_numpy`` for a whole AMG hierarchy that the caller
+flattened into a dict of arrays (a ``TransferDia`` level and the true
+sizes of a row-padded hierarchy included). All place the result on ``device``
 (CUDA unless the caller names another).
 """
 
@@ -15,6 +16,7 @@ import torch
 
 from hypre_tpu_torch.amg.hierarchy import AMGHierarchy, Level
 from hypre_tpu_torch.core.config import resolve_device
+from hypre_tpu_torch.seq.bsr import BsrMatrix
 from hypre_tpu_torch.seq.dia import DiaMatrix
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.fastmv import BandedEll
@@ -37,6 +39,15 @@ def ell_from_numpy(vals, cols, n_cols: int, shifts=None,
         n_cols=int(n_cols),
         shifts=None if shifts is None else tuple(int(s) for s in shifts),
     )
+
+
+def bsr_from_numpy(bvals, bcols, n_bcols: int, device=None) -> BsrMatrix:
+    """BsrMatrix from (nb, k, bs, bs) block values and (nb, k) block
+    columns (padding: column -1, block 0)."""
+    device = resolve_device(device)
+    return BsrMatrix(bvals=_tensor(bvals, device),
+                     bcols=_tensor(bcols, device, torch.int32),
+                     n_bcols=int(n_bcols))
 
 
 def dia_from_numpy(d: dict, device=None) -> DiaMatrix:

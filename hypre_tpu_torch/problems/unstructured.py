@@ -12,7 +12,7 @@ from the same seed:
   heavy-tailed degree distribution and a grounded diagonal (the
   G3_circuit class);
 - ``fem_block_2d``: the 2-dof-a-node version of the FEM problem for the
-  nodal path (its BSR/nodal-AMG use waits for ``block_amg``).
+  nodal path (``seq.bsr.ell_to_bsr`` blocks it for ``amg.block_amg``).
 
 Each returns an assembled ``IJMatrix``; ``get_object(device=...)`` puts it
 on the card. scipy (``Delaunay``) is imported inside the FEM generator

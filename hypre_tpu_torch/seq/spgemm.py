@@ -69,12 +69,20 @@ def _merge_rows(cols: torch.Tensor, vals: torch.Tensor, out_k: int):
     out_vals = torch.zeros((n, out_k), dtype=vals.dtype, device=dev)
     first = kept & is_new
     out_cols[rows[first], upos[first].long()] = sc[first]
-    max_rank = int(rank[kept].max()) if bool(kept.any()) else -1
-    for d in range(max_rank + 1):
-        # each (row, slot) appears at most once per rank
-        m = kept & (rank == d)
-        r_m, u_m = rows[m], upos[m].long()
-        out_vals[r_m, u_m] = out_vals[r_m, u_m] + sv[m]
+    # one pass per rank, each (row, slot) at most once per pass; the kept
+    # entries are grouped by rank once (a stable sort), so that a pass
+    # reads its own entries only: long runs of equal columns (the Galerkin
+    # products of aggregation hierarchies) cost one slice each, not one
+    # sweep of the slab each
+    r_k, u_k = rows[kept], upos[kept].long()
+    rank_k, v_k = rank[kept], sv[kept]
+    by_rank = torch.argsort(rank_k, stable=True)
+    start = 0
+    for end in torch.cumsum(torch.bincount(rank_k), 0).tolist():
+        sel = by_rank[start:end]
+        r_m, u_m = r_k[sel], u_k[sel]
+        out_vals[r_m, u_m] = out_vals[r_m, u_m] + v_k[sel]
+        start = end
     return out_cols, out_vals, required_k
 
 

@@ -551,3 +551,57 @@ def test_ij_refine_hybrid_mgr_block_tridiag_on_card_equal_cpu():
                        bool(bi.converged))
     assert out["cuda"] == out["cpu"]
     assert all(out["cuda"][5:])
+
+
+@pytest.mark.gpu
+def test_sa_gsmg_block_amg_ams_on_card_equal_cpu():
+    """The rest of amg/ card against CPU (plain versions), float32:
+    SmoothedAggAMG and GSMG on the 24^3 Laplacian with the kernel formats,
+    BlockAMG on elasticity_2d(24, 24), AMS on the curl-curl problem of the
+    6^3 hex complex: the same levels (aggregate and C-point counts),
+    formats and iterations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.amg.ams import AMS
+    from hypre_tpu_torch.amg.block_amg import BlockAMG
+    from hypre_tpu_torch.amg.gsmg import GSMG
+    from hypre_tpu_torch.problems import maxwell
+    from hypre_tpu_torch.seq.bsr import ell_to_bsr
+
+    def levels(hier):
+        return ([lv.A.n_rows for lv in hier.levels]
+                + [hier.coarse_inv.shape[0]],
+                [(type(lv.A).__name__, type(lv.P).__name__)
+                 for lv in hier.levels])
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        rec = []
+        A = laplacian_3d_7pt(24, 24, 24, dtype=torch.float32, device=device)
+        b = torch.ones(A.n_rows, dtype=torch.float32, device=device)
+        for cls in (H.SmoothedAggAMG, GSMG):
+            amg = cls(max_coarse_size=200).setup(A, optimize=True,
+                                                 device=device)
+            _, info = H.pcg(amg.hierarchy.levels[0].A.mv, b,
+                            M=amg.precond(), rtol=1e-6, maxiter=200,
+                            device=device)
+            rec.append((levels(amg.hierarchy), int(info.iterations),
+                        bool(info.converged)))
+        E = H.elasticity_2d(24, 24, dtype=torch.float32, device=device)
+        bam = BlockAMG().setup(ell_to_bsr(E, 2), device=device)
+        _, info = H.pcg(E.mv, torch.ones(E.n_rows, device=device),
+                        M=bam.precond(), rtol=1e-6, maxiter=200,
+                        device=device)
+        rec.append(([lv.A.n_rows for lv in bam.levels],
+                    int(info.iterations), bool(info.converged)))
+        Ac, G, xyz = maxwell.curl_curl_3d(6, dtype=torch.float32,
+                                         device=device)
+        ams = AMS().setup(Ac, G, xyz, device=device, optimize=True)
+        _, info = H.pcg(Ac.mv, torch.ones(Ac.n_rows, device=device),
+                        M=ams.precond(), rtol=1e-6, maxiter=200,
+                        device=device)
+        rec.append(([levels(B.hierarchy) for B in [ams.B_G] + ams.B_Pi],
+                    int(info.iterations), bool(info.converged)))
+        out[device] = rec
+    assert out["cuda"] == out["cpu"]
+    assert all(r[-1] for r in out["cuda"])

@@ -33,6 +33,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.problems.unstructured\n"
         "import hypre_tpu_torch.amg.hybrid, hypre_tpu_torch.amg.mgr\n"
         "import hypre_tpu_torch.amg.block_tridiag\n"
+        "import hypre_tpu_torch.amg.gsmg, hypre_tpu_torch.amg.smoothed_agg\n"
+        "import hypre_tpu_torch.seq.bsr, hypre_tpu_torch.amg.block_amg\n"
+        "import hypre_tpu_torch.amg.ams, hypre_tpu_torch.amg.ads\n"
+        "import hypre_tpu_torch.amg.ame, hypre_tpu_torch.multivector\n"
+        "import hypre_tpu_torch.problems.maxwell\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu', 'scipy')]\n"
         "assert not bad, bad\n"
@@ -54,7 +59,9 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "cogmres.py", "flexgmres.py", "lgmres.py", "bicgstab.py",
             "cgnr.py", "lobpcg.py", "ij.py", "io.py", "refine.py",
             "twofloat.py", "unstructured.py", "hybrid.py", "mgr.py",
-            "block_tridiag.py"} <= names
+            "block_tridiag.py", "gsmg.py", "smoothed_agg.py", "bsr.py",
+            "block_amg.py", "ams.py", "ads.py", "ame.py", "multivector.py",
+            "maxwell.py"} <= names
     for path in PORT_FILES:
         text = path.read_text()
         assert not pattern.search(text), path
