@@ -86,9 +86,9 @@ Phases (any failure exits non-zero before the last line is printed):
     ``elasticity_2d(1024, 1024)``; ``BlockAMG`` on ``fem_block_2d(1024)``
     under FlexGMRES(30); ``AMS`` on the curl-curl + mass operator and
     ``ADS`` on the div-div + mass operator (lognormal coefficients) of the
-    88^3 hex complex under PCG (BlockAMG on elasticity and ADS in float64,
-    see ``aux_runs``); ``AME`` (block 4) on the curl-curl operator at
-    N_AME^3 (cut, see AME_CUT). Each prints its setup seconds, levels,
+    88^3 and N_ADS^3 (cut, see ADS_CUT) hex complexes under PCG (BlockAMG
+    on elasticity and ADS in float64, see ``aux_runs``); ``AME`` (block 4)
+    on the curl-curl operator at N_AME^3 (cut, see AME_CUT). Each prints its setup seconds, levels,
     formats, iterations, warm ms, true residual and launches; each solve
     must converge under TRUE_RESIDUAL_LIMIT and, wherever a facade built
     kernel formats (float32), launch a ported kernel; AME's eigenvalues
@@ -96,7 +96,21 @@ Phases (any failure exits non-zero before the last line is printed):
     divergence-free vectors. Then the same paths at small sizes on the
     card and on the CPU: equal levels, formats and iterations, and AME's
     eigenvalues against a dense oracle.
-13. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+13. hypre's preconditioners at full width, f32 at rtol 1e-6 through the
+    port's ij driver (``drivers.ij.prepare``) on the 7-pt 128^3: FSAI-,
+    ParaSails-, Schwarz- and Euclid-PCG, ILU-, ILUT- and PILUT-GMRES, and
+    AMG-PCG with FSAI, ILU and Schwarz level smoothing (-smtype 4/5/6
+    -smlv 2); by the API IC and PolyPrecond(order=4) under PCG,
+    ILUSchurGMRES (f64) under FlexGMRES(30) at 128^3, ILUSchurNSH at
+    NSH_N^2 (cut, NSH_CUT), MGR with the global ILU pass on phase 10's
+    block system, BlockPrecond and Uzawa on the Stokes-like saddle system
+    at SADDLE_N^2 x 2. Each prints its setup seconds, iterations, warm ms,
+    f64 true residual, launches of the ported kernels and the card's
+    kernels of all ops (profiler), and must converge under
+    TRUE_RESIDUAL_LIMIT and launch a ported kernel. Then every class, each
+    -smtype and the driver's ids at small sizes on the card and on the
+    CPU: equal iterations, factors to PRECOND_FACTOR_RTOL.
+14. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -221,8 +235,71 @@ AUX_RTOL = FACADE_RTOL
 # ADS in f64 takes 308 PCG iterations at 88^3 on an NVIDIA H100 80GB HBM3
 # at 700 W: the sigma = 2 lognormal coefficients span ~1e9 there
 AUX_MAXITER = 1000
-AUX_SMALL = dict(n3d=20, n2d=48, fem_m=24, nhex=6, ame_hex=6)
+# ADS's size, cut from N_HEX to keep the whole run near 900 s once phase
+# 13 came in: at 88^3 the path took 130.5-154.5 s on an NVIDIA H100 80GB
+# HBM3 at 700 W (setup 75 s, 308 iterations in 53-56 s), and the run 920 s
+N_ADS = 64
+ADS_CUT = ("ADS at 64^3: at 88^3 the path took 130-155 s on the H100 and "
+           "the run with phase 13 920 s, over ~900")
+AUX_SMALL = dict(n3d=20, n2d=48, fem_m=24, nhex=6, ads_hex=6, ame_hex=6)
 AUX_KERNELS = ("dia_spmv", "banded_spmv", "banded_spmv_t")
+# Phase 13: the ij driver's preconditioner ids and -smtype at N_MAIN^3,
+# rtol PRECOND_RTOL: (label, flags, dtype). In float32 with b = ones the
+# true residual floors near 2e-4 at 128^3 (TRUE_RESIDUAL_LIMIT above), so
+# PCG runs with -recompute 0 (its recurrence residual; the driver's
+# default recomputes b - A x, hypre's RecomputeResidual) and the
+# left-preconditioned GMRES ids, which recompute M (b - A x) at every
+# restart, run in float64 (ROADMAP.md Queue 3).
+PRECOND_RTOL = FACADE_RTOL
+PRECOND_MAXITER = 1000
+PRECOND_IDS = [
+    ("FSAI-PCG", "-solver 31 -recompute 0", "float32"),
+    ("ParaSails-PCG", "-solver 8 -recompute 0", "float32"),
+    ("Schwarz-PCG", "-solver 12 -recompute 0", "float32"),
+    ("Euclid-PCG, ILU(1)", "-solver 43 -recompute 0", "float32"),
+    ("ILU-GMRES", "-solver 80", "float64"),
+    ("ILUT-GMRES", "-solver 81", "float64"),
+    ("PILUT-GMRES", "-solver 7", "float64"),
+    ("AMG-PCG, FSAI smoothing",
+     "-solver 1 -rlx 18 -smtype 4 -smlv 2 -recompute 0", "float32"),
+    ("AMG-PCG, ILU smoothing",
+     "-solver 1 -rlx 18 -smtype 5 -smlv 2 -recompute 0", "float32"),
+    ("AMG-PCG, Schwarz smoothing",
+     "-solver 1 -rlx 18 -smtype 6 -smlv 2 -recompute 0", "float32"),
+]
+SCHUR_NPARTS = 4
+# ILUSchurGMRES's size: at 128^3 (f64) it took 217 FlexGMRES iterations
+# and 11.5 s a warm solve, 112 s for the part (an inner GMRES of up to 5
+# steps, with its host reads, in every application), over its share of
+# the phase
+SCHUR_N = 64
+SCHUR_CUT = ("ILUSchurGMRES at 64^3: at 128^3 the part took 112 s on the "
+             "H100 (11.5 s a warm solve)")
+# ILU-NSH's size: its interface basis is dense (n, m), m = 6 N for 4 row
+# blocks of an N^2 grid: 1 M x 6144 (25 GB in f32) at 1024^2, 65 536 x
+# 1536 at 256^2
+NSH_N = 256
+NSH_CUT = ("ILUSchurNSH at 256^2: its dense (n, m) interface basis is "
+           "25 GB per copy at 1024^2")
+SADDLE_N = 1024
+# Uzawa (omega 0.5) converges while its A11 BoomerAMG is a direct solve:
+# with the reference test's 2 V-cycles per A11 solve it stalls at 3e-2
+# from 40^2 (A11 above max_coarse_size 1500; port on the CPU, f64, 38^2:
+# 115 iterations). With 12 V-cycles it converges at 128^2 (169, f32)
+# but not at 64^2 within 600 iterations.
+UZAWA_N = 128
+UZAWA_CYCLES = 12
+UZAWA_CUT = ("Uzawa at 128^2 x 2 with 12 A11 V-cycles: with the reference "
+             "test's 2 it converges only while A11 is a direct solve "
+             "(<= 38^2)")
+# the card-vs-CPU grid of phase 13 (7-pt, and N_SMALL_2D for the 2-D ones)
+PRECOND_SMALL = 16
+PRECOND_FACTOR_RTOL = 1e-5
+# the classes' solves there, in float32 away from its floor (~3e-6 at 16^3)
+PRECOND_SMALL_RTOL = 1e-4
+# 20^2: at 32^2 the CPU's residual crosses rtol 0.5 % under it (step 81:
+# 9.95e-5), where the card's crossed a step later; at 20^2 7 % under
+UZAWA_SMALL = 20
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -1283,6 +1360,19 @@ def uncounted(kernels, fn):
         kernels.LAUNCHES.update(saved)
 
 
+def device_kernels(torch, fn) -> int:
+    """The CUDA kernels the card ran in one call of fn (torch.profiler):
+    every op's launches, the ported kernels' included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def hold_dia(M, label, kernels, torch, held):
     """One launch of M's DIA kernel (the one its ``mv`` takes) against the
     plain version on the same x: the bits must agree. The counts are
@@ -1538,20 +1628,10 @@ def ij_phase(H, kernels, torch, held):
             "below the plain one")
     hold_dia(D, "IJ 7-pt DiaMatrix (refiners)", kernels, torch, held)
     # one two-float residual: its device kernels, counted by the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    def profiled():
-        dia_residual_2f(D, b, x_hi, x_lo)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            dia_residual_2f(D, b, x_hi, x_lo)
-            torch.cuda.synchronize()
-        return sum(e.count for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-
     log(json.dumps({
         "dia_residual_2f": f"D = 7, n = {n ** 3}",
-        "device_kernels": uncounted(kernels, profiled),
+        "device_kernels": uncounted(kernels, lambda: device_kernels(
+            torch, lambda: dia_residual_2f(D, b, x_hi, x_lo))),
         "ms": uncounted(kernels, lambda: time_ms(
             lambda: dia_residual_2f(D, b, x_hi, x_lo), torch, warmup=2,
             reps=10)),
@@ -1873,13 +1953,13 @@ def ams_levels(ams) -> dict:
 
 
 def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
-             ame_hex: int, held=None, kernels=None) -> dict:
+             ads_hex: int, ame_hex: int, held=None, kernels=None) -> dict:
     """Every solver of the slice on ``device``, rtol AUX_RTOL, f32 but for
     two f64 paths (below): SA and GSMG on the 7-pt n3d^3 (b = ones), SA
     with the rigid-body modes and BlockAMG on elasticity_2d(n2d, n2d),
     BlockAMG on fem_block_2d(fem_m), AMS on the curl-curl and ADS on the
-    div-div problem of the nhex^3 hex complex, AME on the curl-curl
-    problem at ame_hex^3. The 2-D, FEM and hex problems solve for a
+    div-div problem of the nhex^3 and ads_hex^3 hex complexes, AME on the
+    curl-curl problem at ame_hex^3. The 2-D, FEM and hex problems solve for a
     manufactured x*. Returns one comparable record per path; with
     ``kernels`` on the card it also times, logs and checks each solve
     (check_solve) and requires a launch of a ported kernel wherever a
@@ -2029,14 +2109,16 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
     # 1000 (port on the CPU). The kernel formats are float32, so this
     # path runs PyTorch ELL products.
     t0 = time.perf_counter()
-    A, C, G, xyz = maxwell.div_div_3d(nhex, dtype=torch.float64,
+    A, C, G, xyz = maxwell.div_div_3d(ads_hex, dtype=torch.float64,
                                       device=device)
     ads, s = setup(lambda: ADS().setup(A, C, G, xyz, device=device,
                                        optimize=True))
     rec = {"ams": ams_levels(ads.ams),
            "Pi": [aux_levels(B) for B in ads.B_Pi], "setup_s": s,
            "faces": A.n_rows, "dtype": "float64"}
-    solve("ads", f"ads pcg div-div {nhex}^3 f64", A, optimize_operator(A),
+    if cb and ads_hex == N_ADS:
+        rec["size"] = ADS_CUT
+    solve("ads", f"ads pcg div-div {ads_hex}^3 f64", A, optimize_operator(A),
           manufactured_rhs(A, torch, 18), ads.precond(), rec, need=False,
           once=True)
     del ads, A, C, G
@@ -2083,7 +2165,7 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
 def aux_phase(H, kernels, torch, held):
     """Phase 12: the slice's solvers at full width on the card."""
     kernels.reset_launches()
-    aux_runs(H, torch, "cuda", N_MAIN, N_2D, N_2D, N_HEX, N_AME, held,
+    aux_runs(H, torch, "cuda", N_MAIN, N_2D, N_2D, N_HEX, N_ADS, N_AME, held,
              kernels)
     return dict(kernels.LAUNCHES)
 
@@ -2129,6 +2211,320 @@ def aux_card_vs_cpu(H, kernels, torch):
                         "cpu": out["cpu"][key]}))
         require(out["cuda"][key] == out["cpu"][key],
                 f"{key}: card and CPU differ")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: hypre's preconditioners at full width
+# ---------------------------------------------------------------------------
+
+
+def saddle_system(H, torch, n: int, dtype, device):
+    """tests/test_precond.py's Stokes-like system at n^2 velocity and n^2
+    pressure unknowns: A the 5-pt Laplacian plus the unit mass, B a
+    one-sided difference, C = 1e-2 I."""
+    from hypre_tpu_torch.precond.saddle import SaddleSystem
+    from hypre_tpu_torch.seq.spgemm import ell_add, ell_transpose
+
+    kw = dict(dtype=dtype, device=device)
+    A = ell_add(1.0, H.laplacian_2d_5pt(n, n, **kw), 1.0,
+                H.stencil_to_ell((n, n), [(0, 0)], [1.0], **kw))
+    B = H.stencil_to_ell((n, n), [(0, 0), (1, 0)], [1.0, -1.0], **kw)
+    C = H.stencil_to_ell((n, n), [(0, 0)], [1e-2], **kw)
+    return SaddleSystem(A=A, B=B, Bt=ell_transpose(B), C=C)
+
+
+def precond_record(label, kernels, torch, setup_s, run, A64, b, held, op,
+                   need=("dia_spmv",), extra=None):
+    """One phase-13 solve on the card: the operator's DIA kernel held
+    against plain, the solve cold then warm (timed, launches counted),
+    once more under the profiler for the card's kernels of all ops, then
+    check_solve."""
+    hold_dia(op, label, kernels, torch, held)
+    (x, info), warm_ms, grew = timed(kernels, torch, run)
+    ops = uncounted(kernels, lambda: device_kernels(torch, run))
+    it = max(int(info.iterations), 1)
+    rec = {"setup_s": setup_s, "device_kernels": ops,
+           "device_kernels_per_iteration": ops / it}
+    rec.update(extra or {})
+    check_solve(label, torch, x, info, A64, b, warm_ms, grew, need=need,
+                extra=rec)
+    return int(info.iterations)
+
+
+def synced(torch, fn):
+    """(fn(), seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def precond_phase(H, kernels, torch, held):
+    """Phase 13: the ij driver's preconditioner ids and -smtype at 128^3,
+    then the classes the driver does not reach by the API (IC, the
+    polynomial, MGR's global ILU, the saddle solvers, ILU-Schur), each at
+    PRECOND_RTOL with its setup seconds, iterations, warm ms, f64 true
+    residual and launches."""
+    from hypre_tpu_torch.drivers import ij
+    from hypre_tpu_torch.precond import (
+        IC, BlockPrecond, ILUSchurGMRES, ILUSchurNSH, PolyPrecond, Uzawa,
+    )
+    from hypre_tpu_torch.seq.fastmv import optimize_operator
+
+    kernels.reset_launches()
+    grid = f"-n {N_MAIN} {N_MAIN} {N_MAIN} -tol {PRECOND_RTOL}"
+    for label, flags, dtype in PRECOND_IDS:
+        t0 = time.perf_counter()
+        dt = getattr(torch, dtype)
+        case, setup_s = synced(torch, lambda: ij.prepare(
+            f"{flags} {grid}".split(), device="cuda", dtype=dt))
+        need = ("dia_spmv", "banded_spmv", "banded_spmv_t") \
+            if "-smtype" in flags else ("dia_spmv",)
+        precond_record(f"ij {flags} ({label}, {dtype})", kernels, torch,
+                       setup_s, case.solve, f64_of(case.A), case.b, held,
+                       case.op, need=need)
+        del case
+        torch.cuda.empty_cache()
+        log(json.dumps({"phase": "precond_phase", "part": label,
+                        "seconds": time.perf_counter() - t0}))
+
+    n = N_MAIN
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float32, device="cuda")
+    op = optimize_operator(A)
+    b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    for label, make in (("IC", lambda: IC()),
+                        ("PolyPrecond(order=4)", lambda: PolyPrecond(
+                            order=4))):
+        t0 = time.perf_counter()
+        M, setup_s = synced(torch, lambda: make().setup(
+            A, device="cuda").precond())
+        precond_record(f"{label} pcg {n}^3", kernels, torch, setup_s,
+                       lambda: H.pcg(op.mv, b, M=M, rtol=PRECOND_RTOL,
+                                     maxiter=PRECOND_MAXITER,
+                                     device="cuda"),
+                       f64_of(A), b, held, op)
+        log(json.dumps({"phase": "precond_phase", "part": label,
+                        "seconds": time.perf_counter() - t0}))
+    del A, op, b, M
+
+    # ILU-GMRES with its interface Schur solve, in float64 (FlexGMRES tests
+    # b - A x, whose float32 floor lies above PRECOND_RTOL), cut to
+    # SCHUR_N^3 (SCHUR_CUT)
+    t0 = time.perf_counter()
+    n = SCHUR_N
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float64, device="cuda")
+    op = optimize_operator(A)
+    b = torch.ones(A.n_rows, dtype=torch.float64, device="cuda")
+    sch, setup_s = synced(torch, lambda: ILUSchurGMRES(
+        nparts=SCHUR_NPARTS).setup(A, device="cuda"))
+    precond_record(f"ILUSchurGMRES flexgmres {n}^3 (float64)", kernels,
+                   torch, setup_s, lambda: H.flexgmres(
+                       op.mv, b, M=sch.precond(), rtol=PRECOND_RTOL,
+                       maxiter=PRECOND_MAXITER, device="cuda",
+                       **GMRES_KW),
+                   A, b, held, op, extra={"size": SCHUR_CUT})
+    log(json.dumps({"ILUSchurGMRES inner iterations": {
+        "applies": len(sch.inner_iterations),
+        "max": max(sch.inner_iterations),
+        "min": min(sch.inner_iterations)}}))
+    require(max(sch.inner_iterations) <= sch.schur_max_iter,
+            "the inner GMRES ran past its maxiter")
+    del A, op, b, sch
+    log(json.dumps({"phase": "precond_phase", "part": "ILUSchurGMRES",
+                    "seconds": time.perf_counter() - t0}))
+
+    # ILU-NSH: its dense (n, m) interface basis caps the size (NSH_CUT)
+    t0 = time.perf_counter()
+    A = H.laplacian_2d_5pt(NSH_N, NSH_N, dtype=torch.float32, device="cuda")
+    op = optimize_operator(A)
+    b = manufactured_rhs(A, torch, 14)
+    nsh, setup_s = synced(torch, lambda: ILUSchurNSH(
+        nparts=SCHUR_NPARTS, nsh_iters=12).setup(A, device="cuda"))
+    precond_record(f"ILUSchurNSH flexgmres {NSH_N}^2", kernels, torch,
+                   setup_s, lambda: H.flexgmres(
+                       op.mv, b, M=nsh.precond(), rtol=PRECOND_RTOL,
+                       maxiter=PRECOND_MAXITER, device="cuda",
+                       **GMRES_KW),
+                   f64_of(A), b, held, op,
+                   extra={"interface": int(nsh.g_idx.numel()),
+                          "size": NSH_CUT})
+    del A, op, b, nsh
+    log(json.dumps({"phase": "precond_phase", "part": "ILUSchurNSH",
+                    "seconds": time.perf_counter() - t0}))
+
+    # MGR with the global ILU pass on phase 10's block system
+    t0 = time.perf_counter()
+    A, m = block_system(H, torch, N_2D, "cuda")
+    mgr, setup_s = synced(torch, lambda: H.MGR(
+        num_relax_sweeps=2, global_smooth_type="ilu").setup(
+        A, [np.arange(m)], device="cuda"))
+    op = mgr.levels[0].op
+    bb = manufactured_rhs(A, torch, 12)
+    precond_record(f"MGR(global ilu) flexgmres n={2 * m}", kernels, torch,
+                   setup_s, lambda: H.flexgmres(
+                       op.mv, bb, M=mgr.precond(), rtol=PRECOND_RTOL,
+                       maxiter=PRECOND_MAXITER, device="cuda",
+                       **GMRES_KW),
+                   f64_of(A), bb, held, op,
+                   need=("dia_spmv", "banded_spmv", "banded_spmv_t"))
+    del A, mgr, op, bb
+    log(json.dumps({"phase": "precond_phase", "part": "MGR",
+                    "seconds": time.perf_counter() - t0}))
+
+    # the saddle solvers
+    t0 = time.perf_counter()
+    sysm = saddle_system(H, torch, SADDLE_N, torch.float32, "cuda")
+    sys64 = saddle_system(H, torch, SADDLE_N, torch.float64, "cuda")
+    fast = sysm.optimized()
+    x_star = torch.from_numpy(np.random.default_rng(15).random(
+        sysm.n_u + sysm.n_p)).cuda()
+    bs = sys64.mv(x_star).float()
+    bp, setup_s = synced(torch, lambda: BlockPrecond(
+        mode="triangular").setup(sysm, device="cuda"))
+    precond_record(f"BlockPrecond flexgmres {SADDLE_N}^2 x 2", kernels,
+                   torch, setup_s, lambda: H.flexgmres(
+                       fast.mv, bs, M=bp.precond(), rtol=PRECOND_RTOL,
+                       maxiter=PRECOND_MAXITER, device="cuda",
+                       **GMRES_KW),
+                   sys64, bs, held, fast.A,
+                   need=("dia_spmv", "banded_spmv", "banded_spmv_t"),
+                   extra={"levels": level_sizes(bp.amg.hierarchy)})
+    del bp, sysm, sys64, fast
+    sysm = saddle_system(H, torch, UZAWA_N, torch.float32, "cuda")
+    sys64 = saddle_system(H, torch, UZAWA_N, torch.float64, "cuda")
+    fast = sysm.optimized()
+    x_star = torch.from_numpy(np.random.default_rng(15).random(
+        sysm.n_u + sysm.n_p)).cuda()
+    bs = sys64.mv(x_star).float()
+    uz, setup_s = synced(torch, lambda: Uzawa(
+        omega=0.5, rtol=PRECOND_RTOL, maxiter=PRECOND_MAXITER,
+        inner_cycles=UZAWA_CYCLES).setup(sysm, device="cuda"))
+    f, g = bs[:sysm.n_u], bs[sysm.n_u:]
+
+    def uzawa():
+        u, p, info = uz.solve(f, g)
+        return torch.cat([u, p]), info
+
+    precond_record(f"Uzawa {UZAWA_N}^2 x 2", kernels, torch, setup_s,
+                   uzawa, sys64, bs, held, fast.A,
+                   need=("dia_spmv",), extra={
+                       "levels": level_sizes(uz.amg.hierarchy),
+                       "size": UZAWA_CUT})
+    del uz, sysm, sys64, fast
+    log(json.dumps({"phase": "precond_phase", "part": "saddle",
+                    "seconds": time.perf_counter() - t0}))
+    return dict(kernels.LAUNCHES)
+
+
+def factors_of(obj) -> dict:
+    """name -> host float64 array of what a preconditioner's setup built
+    (dense factors at the card-vs-CPU sizes)."""
+    import torch
+
+    from hypre_tpu_torch.seq.ell import EllMatrix, ell_to_csr
+
+    def dense(M):
+        return np.asarray(ell_to_csr(M).to_dense(), dtype=np.float64)
+
+    out = {}
+    for name in ("L", "U", "Lt", "G", "M", "S", "C"):
+        M = getattr(obj, name, None)
+        if isinstance(M, EllMatrix):
+            out[name] = dense(M)
+    for name in ("dinv", "inv_blocks", "X", "weight"):
+        t = getattr(obj, name, None)
+        if isinstance(t, torch.Tensor):
+            out[name] = t.double().cpu().numpy()
+    if getattr(obj, "coeffs", None) is not None:
+        out["coeffs"] = np.asarray(obj.coeffs, dtype=np.float64)
+    for name in ("_ilut", "B_ilu", "C_ilu"):
+        inner = getattr(obj, name, None)
+        if inner is not None:
+            out.update({f"{name}.{k}": v for k, v in
+                        factors_of(inner).items()})
+    return out
+
+
+def precond_small_runs(H, torch, device) -> dict:
+    """Every class, each -smtype and the driver's ids at small sizes on
+    ``device`` in float32: setup factors and iterations."""
+    from hypre_tpu_torch import precond as P
+    from hypre_tpu_torch.drivers import ij
+
+    out = {}
+    grid = f"-n {PRECOND_SMALL} {PRECOND_SMALL} {PRECOND_SMALL} " \
+        f"-tol {PRECOND_RTOL}"
+    for label, flags, dtype in PRECOND_IDS:
+        case = ij.prepare(f"{flags} {grid}".split(), device=device,
+                          dtype=getattr(torch, dtype))
+        _, info = case.solve()
+        out[f"ij {flags}"] = {"iterations": int(info.iterations),
+                              "converged": bool(info.converged)}
+    n = PRECOND_SMALL
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float32, device=device)
+    b = torch.ones(A.n_rows, dtype=torch.float32, device=device)
+    classes = [("ILU", {}), ("ILU", dict(fill_level=1)), ("ILUT", {}),
+               ("Euclid", {}), ("PILUT", {}), ("IC", {}),
+               ("DDICT", {}), ("DDILUT", {}), ("FSAI", {}),
+               ("FSAI", dict(algo_type="adaptive")), ("ParaSails", {}),
+               ("Schwarz", {}), ("Schwarz", dict(overlap=2)),
+               ("PolyPrecond", {}), ("ILUSchurGMRES", dict(nparts=2)),
+               ("ILUSchurNSH", dict(nparts=2, nsh_iters=12))]
+    for name, kw in classes:
+        obj = getattr(P, name)(**kw).setup(A, device=device)
+        key = name + "".join(f",{k}={v}" for k, v in kw.items())
+        solver = H.flexgmres if name == "ILUSchurGMRES" else (
+            H.gmres if name in ("ILU", "ILUT", "Euclid", "PILUT", "DDILUT",
+                                "ILUSchurNSH") else H.pcg)
+        kws = GMRES_KW if solver is not H.pcg else {}
+        _, info = solver(A.mv, b, M=obj.precond(), rtol=PRECOND_SMALL_RTOL,
+                         maxiter=PRECOND_MAXITER, device=device, **kws)
+        out[key] = {"factors": factors_of(obj),
+                    "iterations": int(info.iterations)}
+    Bk, m = block_system(H, torch, N_SMALL_2D, device)
+    mgr = H.MGR(num_relax_sweeps=2, global_smooth_type="ilu").setup(
+        Bk, [np.arange(m)], optimize=True, device=device)
+    bb = manufactured_rhs(Bk, torch, 12)
+    _, info = H.flexgmres(mgr.levels[0].op.mv, bb, M=mgr.precond(),
+                          rtol=PRECOND_SMALL_RTOL, maxiter=PRECOND_MAXITER,
+                          device=device, **GMRES_KW)
+    out["MGR(global ilu)"] = {"iterations": int(info.iterations)}
+    sysm = saddle_system(H, torch, N_SMALL_2D, torch.float32, device)
+    bs = torch.cat([torch.ones(sysm.n_u), torch.zeros(sysm.n_p)]).to(device)
+    bp = P.BlockPrecond().setup(sysm, device=device, optimize=True)
+    _, info = H.flexgmres(bp.op.mv, bs, M=bp.precond(),
+                          rtol=PRECOND_SMALL_RTOL, maxiter=PRECOND_MAXITER,
+                          device=device, **GMRES_KW)
+    out["BlockPrecond"] = {"factors": factors_of(bp),
+                           "iterations": int(info.iterations)}
+    sysm = saddle_system(H, torch, UZAWA_SMALL, torch.float32, device)
+    bs = torch.cat([torch.ones(sysm.n_u), torch.zeros(sysm.n_p)]).to(device)
+    uz = P.Uzawa(omega=0.5, rtol=PRECOND_SMALL_RTOL).setup(
+        sysm, device=device, optimize=True)
+    *_, info = uz.solve(bs[:sysm.n_u], bs[sysm.n_u:])
+    out["Uzawa"] = {"iterations": int(info.iterations)}
+    return out
+
+
+def precond_card_vs_cpu(H, kernels, torch):
+    """Phase 13's card-vs-CPU part: equal iterations, factors to
+    PRECOND_FACTOR_RTOL relative."""
+    out = {dev: precond_small_runs(H, torch, dev) for dev in ("cuda", "cpu")}
+    for key in out["cuda"]:
+        got, want = out["cuda"][key], out["cpu"][key]
+        gaps = {}
+        for name, w in want.get("factors", {}).items():
+            g = got["factors"][name]
+            require(g.shape == w.shape, f"{key} {name}: shapes differ")
+            gaps[name] = float(np.abs(g - w).max(initial=0.0)
+                               / max(np.abs(w).max(initial=0.0), 1e-30))
+        log(json.dumps({"card_vs_cpu": key, "cuda": got["iterations"],
+                        "cpu": want["iterations"], "factor_gaps": gaps}))
+        require(got["iterations"] == want["iterations"],
+                f"{key}: card and CPU take different iterations")
+        require(all(v <= PRECOND_FACTOR_RTOL for v in gaps.values()),
+                f"{key}: card and CPU factors differ: {gaps}")
 
 
 def main() -> int:
@@ -2207,6 +2603,15 @@ def main() -> int:
     t0 = time.perf_counter()
     aux_card_vs_cpu(H, kernels, torch)
     log(json.dumps({"phase": "aux_card_vs_cpu",
+                    "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_phases.append(precond_phase(H, kernels, torch, held))
+    log(json.dumps({"phase": "precond_phase",
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    precond_card_vs_cpu(H, kernels, torch)
+    log(json.dumps({"phase": "precond_card_vs_cpu",
                     "seconds": time.perf_counter() - t0}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -79,16 +79,26 @@ class BoomerAMG:
     # > 0: lambda_max by a CG/Lanczos run of this many steps
     # (HYPRE_BoomerAMGSetChebyEigEst) instead of the power estimate
     cheby_eig_est: int = 0
-    # complex smoothers on the finest levels (HYPRE_BoomerAMGSetSmoothType)
-    # need the preconditioners of ROADMAP.md Queue 1 item 12
+    # complex smoothers on the finest levels (HYPRE_BoomerAMGSetSmoothType
+    # / SetSmoothNumLevels, par_amg_setup.c's smooth dispatch): levels
+    # 0..smooth_num_levels-1 smooth with u += w M(f - A u), M the named
+    # preconditioner built on that level's operator; the pointwise
+    # ``relax`` smoother runs below. '' | 'fsai' | 'ilu' | 'schwarz'
     smooth_type: str = ""
     smooth_num_levels: int = 0
+    # damping of the complex smoother's correction
+    # (HYPRE_BoomerAMGSetSchwarzRlxWeight)
     smooth_weight: float = 1.0
     # compile the stencil levels' diagonal offsets into the DIA kernel
     specialize: bool = False
 
     hierarchy: Optional[AMGHierarchy] = dataclasses.field(default=None,
                                                           repr=False)
+    # the hierarchy as setup built it, with EllMatrix level operators,
+    # before the kernel formats replace them: the complex smoothers are
+    # built from it, and stats.amg_setup_report reads it
+    ell_hierarchy: Optional[AMGHierarchy] = dataclasses.field(
+        default=None, repr=False)
     # set by setup: the bound smoother, and whether the banded level
     # operators have their transpose schedules yet
     _smoother: object = dataclasses.field(default=None, init=False,
@@ -110,10 +120,6 @@ class BoomerAMG:
         HYPRE_SetExecutionPolicy); 'auto' and False set up on the device.
         optimize: swap the level operators for the kernel formats (DIA,
         banded); 'auto' = when the device is CUDA."""
-        if self.smooth_type:
-            raise NotImplementedError(
-                f"smooth_type={self.smooth_type!r} needs the preconditioners "
-                "of ROADMAP.md Queue 1 item 12, which are not ported yet")
         target = resolve_device(device)
         if self.setup_backend == "device" or host_setup == "auto":
             host_setup = False
@@ -121,7 +127,7 @@ class BoomerAMG:
             optimize = target.type == "cuda"
         where = torch.device("cpu") if host_setup else target
         self._do_setup(A.to(where), where)
-        hier = self.hierarchy
+        hier = self.ell_hierarchy = self.hierarchy
         if optimize:
             hier = optimize_hierarchy(
                 hier, prefer_pallas=True,
@@ -158,7 +164,32 @@ class BoomerAMG:
         self._smoother = make_smoother(
             self.relax, self._weight, self.cheby_order,
             self.cheby_ratio, relax_order=self.relax_order)
+        if self.smooth_type and self.smooth_num_levels > 0:
+            self._smoother = self._complex_smoothers(target)
         return self
+
+    def _complex_smoothers(self, target: torch.device) -> list:
+        """The per-level smoother list of smooth_type (the reference's
+        ``boomeramg.py:211-241``): the named preconditioner, built on
+        ``target`` from each smoothed level's EllMatrix, applied as
+        u + w M(f - A u) with the level's own (kernel-format) A; the
+        pointwise smoother below."""
+        from hypre_tpu_torch.precond.fsai import FSAI
+        from hypre_tpu_torch.precond.ilu import ILU
+        from hypre_tpu_torch.precond.schwarz import Schwarz
+
+        make = {"fsai": FSAI, "ilu": ILU, "schwarz": Schwarz}.get(
+            self.smooth_type)
+        if make is None:
+            raise ValueError(f"unknown smooth_type: {self.smooth_type!r}")
+        w, base = self.smooth_weight, self._smoother
+
+        def smoother(M):
+            return lambda lev, u, f: u + w * M(f - lev.A.mv(u))
+
+        return [smoother(make().setup(lev.A, device=target).precond())
+                if l < self.smooth_num_levels else base
+                for l, lev in enumerate(self.ell_hierarchy.levels)]
 
     def _do_setup(self, A: EllMatrix, where: torch.device) -> None:
         """Build ``self.hierarchy`` for A on ``where`` (the reference's

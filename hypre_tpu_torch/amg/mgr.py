@@ -54,7 +54,7 @@ class MGR:
     coarse_amg: Optional[BoomerAMG] = None
     # global smoothing on the FULL fine system each cycle, the step that
     # turns plain reduction into CPR (HYPRE_MGRSetGlobalSmoothType/Iters):
-    # '' | 'jacobi'; 'ilu' needs ROADMAP.md Queue 1 item 12
+    # '' | 'jacobi' | 'ilu'
     global_smooth_type: str = ""
     global_smooth_iters: int = 1
 
@@ -69,11 +69,7 @@ class MGR:
         (CUDA unless the caller names another); optimize: apply each
         level's A and the coarse BoomerAMG hierarchy through the kernel
         formats, 'auto' = on CUDA."""
-        if self.global_smooth_type == "ilu":
-            raise NotImplementedError(
-                "MGR global_smooth_type='ilu' needs the ILU preconditioner of "
-                "ROADMAP.md Queue 1 item 12, which is not ported yet")
-        if self.global_smooth_type not in ("", "jacobi"):
+        if self.global_smooth_type not in ("", "jacobi", "ilu"):
             raise ValueError(
                 f"unknown global_smooth_type {self.global_smooth_type!r}")
         target = resolve_device(device)
@@ -123,7 +119,11 @@ class MGR:
         self.coarse_amg = (self.coarse_amg or BoomerAMG()).setup(
             A, optimize=optimize, device=target)
         A0 = levels[0].A if levels else A
-        if self.global_smooth_type == "jacobi":
+        if self.global_smooth_type == "ilu":
+            from hypre_tpu_torch.precond.ilu import ILU
+
+            self._gsm = ILU().setup(A0, device=target).precond()
+        elif self.global_smooth_type == "jacobi":
             d = A0.diagonal()
             nz = d != 0
             dinv0 = torch.where(nz, 1.0 / torch.where(nz, d, torch.ones_like(

@@ -5,7 +5,8 @@ anywhere else) comes across as numpy arrays: ``ell_from_numpy`` for one
 ELL matrix, ``bsr_from_numpy`` for one block matrix, and
 ``hierarchy_from_numpy`` for a whole AMG hierarchy that the caller
 flattened into a dict of arrays (a ``TransferDia`` level and the true
-sizes of a row-padded hierarchy included). All place the result on ``device``
+sizes of a row-padded hierarchy included), and ``saddle_from_numpy`` for
+the blocks of a saddle-point system. All place the result on ``device``
 (CUDA unless the caller names another).
 """
 
@@ -129,3 +130,16 @@ def hierarchy_from_numpy(d: dict, device=None) -> AMGHierarchy:
         galerkin=bool(d.get("galerkin", True)),
         n_fine=int(d.get("n_fine", 0)),
         n_level_true=tuple(int(v) for v in d.get("n_level_true", ())))
+
+
+def saddle_from_numpy(d: dict, device=None):
+    """precond.saddle.SaddleSystem from {"A": m, "B": m, "Bt": m,
+    "C": m or None}, each m a matrix dict as in ``hierarchy_from_numpy``."""
+    from hypre_tpu_torch.precond.saddle import SaddleSystem
+
+    device = resolve_device(device)
+    blocks = {key: None if d.get(key) is None else ell_from_numpy(
+        d[key]["vals"], d[key]["cols"], d[key]["n_cols"],
+        d[key].get("shifts"), device=device)
+        for key in ("A", "B", "Bt", "C")}
+    return SaddleSystem(**blocks)

@@ -217,10 +217,7 @@ def test_zero_rhs_and_unported_options():
     with pytest.raises(NotImplementedError, match="device"):
         H.setup_hierarchy(tA, setup_backend="jax", agg_num_levels=1,
                           device="cpu")
-    # Ruge-Stüben is ported now; the facade's complex smoothers are not
+    # Ruge-Stüben is ported now
     ruge = H.setup_hierarchy(tA, coarsen="ruge", setup_backend="jax",
                              max_coarse_size=10, device="cpu")
     assert len(ruge.levels) >= 1
-    with pytest.raises(NotImplementedError, match="item 12"):
-        H.BoomerAMG(smooth_type="ilu", smooth_num_levels=1).setup(
-            tA, device="cpu")

@@ -253,6 +253,43 @@ def test_facade_takes_the_reference_iterations(lap16, kw):
     assert rel_close(tx, jx, 1e-8)
 
 
+@pytest.mark.parametrize("smooth_type", ["fsai", "ilu", "schwarz"])
+def test_smooth_type_matches_the_reference(lap16, monkeypatch, smooth_type):
+    """hypre's complex level smoothers (-smtype) on the first two levels,
+    l1-Jacobi below: the reference facade's own setup binds them to the
+    shared hierarchy (its _do_setup replaced); the port's facade builds
+    the same levels, the same cycle to 1e-10 and, for FSAI and Schwarz,
+    PCG's iterations (ILU's count is pinned by the ij driver's golden,
+    tests/test_torch_ij_driver.py, since the reference's ILU-preconditioned
+    solves are slow on the CPU)."""
+    jA, tA, ja_shared, _, b = lap16
+
+    def shared_setup(self, A):
+        self.hierarchy = ja_shared.hierarchy
+        self._setup_As = [lv.A for lv in self.hierarchy.levels]
+
+    monkeypatch.setattr(JBoomerAMG, "_do_setup", shared_setup)
+    kw = dict(max_coarse_size=MAX_COARSE, relax="l1-jacobi",
+              smooth_type=smooth_type, smooth_num_levels=2,
+              smooth_weight=0.7 if smooth_type == "schwarz" else 1.0)
+    ja = JBoomerAMG(setup_backend="jax", **kw).setup(jA)
+    ta = H.BoomerAMG(**kw).setup(tA, device="cpu")
+    assert [lv.A.n_rows for lv in ta.hierarchy.levels] == \
+        [lv.A.n_rows for lv in ja.hierarchy.levels]
+    assert len(ta.hierarchy.levels) > 2 and isinstance(ta._smoother, list)
+    assert rel_close(ta.cycle(torch.from_numpy(b)), ja.cycle(jnp.asarray(b)),
+                     1e-10)
+    if smooth_type == "ilu":
+        return
+    jx, ji = j_pcg(jA.mv, jnp.asarray(b), M=ja.precond(), rtol=1e-8,
+                   maxiter=100)
+    tx, ti = H.pcg(tA.mv, torch.from_numpy(b), M=ta.precond(), rtol=1e-8,
+                   maxiter=100, device="cpu")
+    assert bool(ti.converged) and bool(ji.converged)
+    assert int(ti.iterations) == int(ji.iterations)
+    assert rel_close(tx, jx, 1e-8)
+
+
 def test_facade_solve_and_solve_t_take_the_reference_iterations(lap16):
     jA, tA, ja_shared, _, b = lap16
     ja = JBoomerAMG(setup_backend="jax", max_coarse_size=MAX_COARSE,
@@ -363,8 +400,8 @@ def test_banded_levels_without_ell_run_every_smoother(monkeypatch, relax,
 
 def test_facade_options_that_stay_unported_raise():
     tA = H.laplacian_2d_5pt(8, 8, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        H.BoomerAMG(smooth_type="ilu", smooth_num_levels=1).setup(
+    with pytest.raises(ValueError, match="smooth_type"):
+        H.BoomerAMG(smooth_type="pilut", smooth_num_levels=1).setup(
             tA, device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         H.BoomerAMG(agg_num_levels=1, max_coarse_size=10).setup(

@@ -605,3 +605,87 @@ def test_sa_gsmg_block_amg_ams_on_card_equal_cpu():
         out[device] = rec
     assert out["cuda"] == out["cpu"]
     assert all(r[-1] for r in out["cuda"])
+
+
+PRECOND_CLASSES = [
+    ("ILU", {}), ("ILU", dict(fill_level=1)), ("ILUT", {}), ("Euclid", {}),
+    ("PILUT", {}), ("IC", {}), ("DDICT", {}), ("DDILUT", {}), ("FSAI", {}),
+    ("FSAI", dict(algo_type="adaptive")), ("ParaSails", {}),
+    ("Schwarz", {}), ("Schwarz", dict(overlap=2, weighting="ras")),
+    ("PolyPrecond", {}), ("ILUSchurNSH", dict(nparts=2, nsh_iters=12)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw", PRECOND_CLASSES,
+                         ids=[n + "".join(f",{k}={v}" for k, v in kw.items())
+                              for n, kw in PRECOND_CLASSES])
+def test_preconditioner_on_card_equals_cpu(name, kw):
+    """Each preconditioner at 16^3 float32 on the card and on the CPU:
+    its factors to 1e-5 relative, and one application to 1e-5; the
+    polynomial's products on the card run the DIA kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch import precond as P
+    from hypre_tpu_torch.seq.ell import ell_to_csr
+
+    r = np.random.default_rng(3).standard_normal(16 ** 3).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        A = laplacian_3d_7pt(16, 16, 16, dtype=torch.float32, device=device)
+        before = dict(kernels.LAUNCHES)
+        obj = getattr(P, name)(**kw).setup(A, device=device)
+        z = obj.precond()(torch.from_numpy(r).to(device))
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        parts = {}
+        inner = getattr(obj, "_ilut", None) or obj
+        for key in ("L", "U", "G", "M", "Lt"):
+            M = getattr(inner, key, None)
+            if M is not None:
+                parts[key] = ell_to_csr(M).to_dense()
+        for key in ("dinv", "inv_blocks", "X"):
+            t = getattr(obj, key, None)
+            if isinstance(t, torch.Tensor):
+                parts[key] = t.cpu().numpy()
+        parts["z"] = z.cpu().numpy()
+        out[device] = parts
+        if device == "cuda" and name == "PolyPrecond":
+            assert launched["dia_spmv"] > 0
+    assert out["cuda"].keys() == out["cpu"].keys()
+    for key in out["cpu"]:
+        assert close(out["cuda"][key], out["cpu"][key], 1e-5), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,dtype", [
+    ("-solver 31 -recompute 0", torch.float32),
+    ("-solver 8 -recompute 0", torch.float32),
+    ("-solver 12 -recompute 0", torch.float32),
+    ("-solver 43 -recompute 0", torch.float32),
+    ("-solver 80", torch.float64), ("-solver 81", torch.float64),
+    ("-solver 7", torch.float64),
+    ("-solver 1 -rlx 18 -smtype 4 -smlv 2 -recompute 0", torch.float32),
+    ("-solver 1 -rlx 18 -smtype 5 -smlv 2 -recompute 0", torch.float32),
+    ("-solver 1 -rlx 18 -smtype 6 -smlv 2 -recompute 0", torch.float32),
+])
+def test_ij_driver_on_card_equals_cpu(flags, dtype):
+    """The ij driver's preconditioner ids at 20^3, rtol 1e-5, on the card
+    and on the CPU: the same iterations; on the card the outer A runs the
+    DIA kernel. The left-preconditioned GMRES ids run in float64, as in
+    chip_smoke.py phase 13 (their float32 restarts floor near rtol)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import ij
+
+    its = {}
+    for device in ("cuda", "cpu"):
+        before = dict(kernels.LAUNCHES)
+        with contextlib.redirect_stdout(io.StringIO()):
+            its[device] = ij.run(f"{flags} -n 20 20 20 -tol 1e-5".split(),
+                                 device=device, dtype=dtype)[0]
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        assert (launched["dia_spmv"] > 0) == (device == "cuda")
+    assert its["cuda"] == its["cpu"]

@@ -227,10 +227,31 @@ def test_mgr_global_jacobi_smoother_matches(no_native):
                      1e-10)
 
 
-def test_mgr_ilu_global_smoother_names_the_preconditioner_item():
-    _, tA, cpts = mgr_laplacian()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        H.MGR(global_smooth_type="ilu").setup(tA, cpts, device="cpu")
+def test_mgr_ilu_global_smoother_matches(no_native):
+    """The global ILU(0) pass ahead of the reduction cycle (CPR): the
+    reference's cycle to 1e-10 on the Laplacian. On the block system the
+    port's MGR-GMRES with the ILU pass takes fewer iterations than with
+    the Jacobi pass (9 against 16; the reference's ILU-preconditioned
+    solves are slow on the CPU, so only the cycle is held against it)."""
+    jA, tA, cpts = mgr_laplacian()
+    jm = JMGR(coarse_amg=JBoomerAMG(setup_backend="jax"),
+              global_smooth_type="ilu").setup(jA, cpts)
+    tm = H.MGR(global_smooth_type="ilu").setup(tA, cpts, device="cpu")
+    f = np.random.default_rng(5).standard_normal(tA.n_rows)
+    assert rel_close(tm.cycle(torch.from_numpy(f)), jm.cycle(jnp.asarray(f)),
+                     1e-10)
+    _, tB, bcpts = block_system()
+    b = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tB.n_rows))
+    its = {}
+    for kind in ("ilu", "jacobi"):
+        m = H.MGR(global_smooth_type=kind, num_relax_sweeps=2).setup(
+            tB, bcpts, device="cpu")
+        x, info = H.gmres(tB.mv, b, M=m.precond(), rtol=1e-8, maxiter=200,
+                          device="cpu")
+        assert bool(info.converged)
+        its[kind] = int(info.iterations)
+    assert its["ilu"] < its["jacobi"]
 
 
 def test_mgr_injection_interpolation(no_native):

@@ -38,6 +38,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.amg.ams, hypre_tpu_torch.amg.ads\n"
         "import hypre_tpu_torch.amg.ame, hypre_tpu_torch.multivector\n"
         "import hypre_tpu_torch.problems.maxwell\n"
+        "import hypre_tpu_torch.precond.ilu, hypre_tpu_torch.precond.ic\n"
+        "import hypre_tpu_torch.precond.euclid, hypre_tpu_torch.precond.fsai\n"
+        "import hypre_tpu_torch.precond.parasails\n"
+        "import hypre_tpu_torch.precond.schwarz, hypre_tpu_torch.precond.poly\n"
+        "import hypre_tpu_torch.precond.ilu_schur\n"
+        "import hypre_tpu_torch.precond.saddle\n"
+        "import hypre_tpu_torch.core.error, hypre_tpu_torch.stats\n"
+        "import hypre_tpu_torch.drivers.ij\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu', 'scipy')]\n"
         "assert not bad, bad\n"
@@ -61,7 +69,10 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "twofloat.py", "unstructured.py", "hybrid.py", "mgr.py",
             "block_tridiag.py", "gsmg.py", "smoothed_agg.py", "bsr.py",
             "block_amg.py", "ams.py", "ads.py", "ame.py", "multivector.py",
-            "maxwell.py"} <= names
+            "maxwell.py", "ilu.py", "ic.py", "euclid.py", "fsai.py",
+            "parasails.py", "schwarz.py", "poly.py", "ilu_schur.py",
+            "saddle.py", "error.py", "stats.py"} <= names
+    assert ROOT / "hypre_tpu_torch" / "drivers" / "ij.py" in PORT_FILES
     for path in PORT_FILES:
         text = path.read_text()
         assert not pattern.search(text), path
