@@ -110,7 +110,22 @@ Phases (any failure exits non-zero before the last line is printed):
     TRUE_RESIDUAL_LIMIT and launch a ported kernel. Then every class, each
     -smtype and the driver's ids at small sizes on the card and on the
     CPU: equal iterations, factors to PRECOND_FACTOR_RTOL.
-14. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+14. hypre's struct layer at full width, f32 at rtol 1e-6, through the
+    port's struct driver (``prepare``, then ``solve``): PFMG-PCG
+    and SMG-PCG on the 2-D 5-pt STRUCT_N2D^2 and the 3-D 7-pt
+    STRUCT_N3D^3, PFMG, SparseMSG-PCG and StructHybrid at STRUCT_N2D^2
+    (the 2-D paths for a manufactured x*). Each prints its setup seconds,
+    levels (shape, cdir, stencil size, DIA planes), iterations, warm ms,
+    f64 true residual, DIA launches per iteration and the card's kernels
+    of all ops per iteration, must converge under TRUE_RESIDUAL_LIMIT and
+    launch kernel 1 or 2; every DIA view of each path is held against the
+    plain version. Kernels 1 and 2 are timed on the 2-D and 3-D level-0
+    operators and PFMG's probed level 1. Then every struct driver id at
+    its STRUCT_SMALL flags on the card and on the CPU: in float64 equal
+    iterations, the goldens' where there is one; in float32 and float64
+    equal cdir sequences and stencil offsets, coefficients to
+    STRUCT_COEFF_RTOL in float32.
+15. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -300,6 +315,41 @@ PRECOND_SMALL_RTOL = 1e-4
 # 20^2: at 32^2 the CPU's residual crosses rtol 0.5 % under it (step 81:
 # 9.95e-5), where the card's crossed a step later; at 20^2 7 % under
 UZAWA_SMALL = 20
+# The struct phase (14): hypre's benchmark_struct jobs (BASELINE.md:28-36)
+# and bench.py's struct section, float32 at rtol 1e-6 (label, struct
+# driver id, dims): the 2-D 5-pt at STRUCT_N2D^2, the 3-D 7-pt at
+# STRUCT_N3D^3
+STRUCT_N2D = 2048
+STRUCT_N3D = 128
+STRUCT_RTOL = 1e-6
+STRUCT_MAXITER = 200
+STRUCT_PATHS = [("PFMG-PCG", 11, 2), ("SMG-PCG", 10, 2), ("PFMG-PCG", 11, 3),
+                ("SMG-PCG", 10, 3), ("PFMG", 1, 2), ("SparseMSG-PCG", 12, 2),
+                ("StructHybrid", 21, 2)]
+STRUCT_KERNELS = ("dia_spmv", "dia_spmv_static")
+# card against CPU: tests/test_drivers.py's STRUCT_GOLDEN flags with their
+# golden iterations (float64), and the ids they do not cover (None)
+STRUCT_SMALL = [
+    ("-solver 0 -n 32 32 1", 6), ("-solver 1 -n 32 32 1", 14),
+    ("-solver 1 -n 16 16 16", 22), ("-solver 11 -n 32 32 1 -tol 1e-8", 11),
+    ("-solver 10 -n 32 32 1 -tol 1e-8", 6),
+    ("-solver 1 -n 64 64 1 -c 1 0.01 1", 11),
+    ("-solver 2 -n 16 16 1 -tol 1e-8", 11),
+    ("-solver 12 -n 16 16 1 -jump 1 -tol 1e-8", 8),
+    ("-solver 21 -n 16 16 1 -tol 1e-8", 7),
+    ("-solver 32 -n 16 16 1 -tol 1e-8", 6),
+    ("-solver 17 -n 10 10 10 -tol 1e-6", 20),
+    ("-solver 18 -n 10 10 10 -tol 1e-6", 20),
+    ("-solver 8 -n 8 8 1 -tol 1e-5", None),
+    ("-solver 20 -n 12 12 12 -tol 1e-8", None),
+    ("-solver 22 -n 16 16 1 -tol 1e-8", None),
+    ("-solver 30 -n 16 16 1 -tol 1e-8", None),
+    ("-solver 31 -n 16 16 1 -tol 1e-8", None)]
+STRUCT_COEFF_RTOL = 1e-5
+# float32 solves of the card-against-CPU part run at this tolerance: the
+# goldens' 1e-5 to 1e-8 lie under what standalone SMG and PFMG reach in
+# float32 at these sizes (they stall at 1.5e-5 and 2.9e-5 relative)
+STRUCT_F32_TOL = 1e-4
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -2527,6 +2577,255 @@ def precond_card_vs_cpu(H, kernels, torch):
                 f"{key}: card and CPU factors differ: {gaps}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: hypre's struct layer at full width
+# ---------------------------------------------------------------------------
+
+
+def struct_operators(mg) -> list:
+    """(label, StructMatrix) for every operator a struct solver applies
+    through its DIA view: the levels' A, SMG's plane operators, SparseMSG's
+    lattice, a Hybrid's A."""
+    hier = getattr(mg, "hierarchy", None)
+    if hier is not None:
+        ops = []
+        for li, lv in enumerate(hier.levels):
+            ops.append((f"A{li}", lv.A))
+            plane = getattr(lv, "plane", None)
+            if plane is not None:
+                ops += [(f"A{li}.T{pi}", pl.T)
+                        for pi, pl in enumerate(plane.levels)]
+        return ops
+    if isinstance(getattr(mg, "A", None), dict):
+        return [(f"A{g}", M) for g, M in mg.A.items()]
+    return [("A", mg.A)]
+
+
+def struct_levels(mg) -> list:
+    """Per level: shape, coarsening direction, stencil size and the DIA
+    view's plane count (PFMG and SMG; SparseMSG's lattice grids)."""
+    hier = getattr(mg, "hierarchy", None)
+    if hier is not None:
+        out = [{"shape": list(lv.A.shape), "cdir": lv.P.cdir,
+                "stencil": lv.A.stencil.size, "D": lv.A.dia.D}
+               for lv in hier.levels]
+        return out + [{"shape": list(hier.coarse_shape),
+                       "stencil": hier.coarse_A.stencil.size}]
+    if isinstance(getattr(mg, "A", None), dict):
+        return [{"grid": list(g), "shape": list(M.shape),
+                 "stencil": M.stencil.size} for g, M in mg.A.items()]
+    return []
+
+
+def hold_struct(label, mg, kernels, torch, held):
+    """Every DIA view of a struct path against the plain version (one
+    launch each, not counted), summarized as one record per kernel."""
+    got = []
+    for name, M in struct_operators(mg):
+        hold_dia(M.dia, f"{label} {name}", kernels, torch, got)
+    for kernel in STRUCT_KERNELS:
+        mine = [h for h in got if h["kernel"] == kernel]
+        if mine:
+            held.append({
+                "kernel": kernel, "operator": f"{label}: {len(mine)} DIA "
+                "views", "shape": [max(h["shape"][0] for h in mine),
+                                   max(h["shape"][1] for h in mine)],
+                "max_abs_err": max(h["max_abs_err"] for h in mine)})
+
+
+def struct_phase(H, kernels, torch, held):
+    """Phase 14 through the port's struct driver (``prepare``, then
+    ``solve`` for the path's right-hand side): PFMG-PCG and SMG-PCG on the
+    2-D 5-pt STRUCT_N2D^2 and the 3-D 7-pt STRUCT_N3D^3, PFMG,
+    SparseMSG-PCG and StructHybrid at STRUCT_N2D^2, float32 at
+    STRUCT_RTOL; the 2-D paths solve for a manufactured x* (b = A x*),
+    the 3-D ones for b = ones. Each prints its setup seconds, levels
+    (shape, cdir, stencil, DIA planes), iterations, warm ms, float64 true
+    residual, DIA launches per iteration and the card's kernels of all
+    ops per iteration; each must converge under TRUE_RESIDUAL_LIMIT and
+    launch kernel 1 or 2. Every DIA view of a path is held against the
+    plain version (one summary record per path in ``held``). Returns the
+    launches and the operators the kernels line times."""
+    from hypre_tpu_torch.drivers import struct as drv
+    from hypre_tpu_torch.problems.struct_problems import struct_laplacian
+
+    kernels.reset_launches()
+    timing_ops = {}
+    for label, sid, dims in STRUCT_PATHS:
+        t0 = time.perf_counter()
+        n = STRUCT_N2D if dims == 2 else STRUCT_N3D
+        shape = (n,) * dims
+        what = f"{label} {'x'.join(map(str, shape))}"
+        flags = (f"-solver {sid} -n {n} {n} {n if dims == 3 else 1} "
+                 f"-tol {STRUCT_RTOL} -max_iter {STRUCT_MAXITER}")
+        case, setup_s = synced(torch, lambda: drv.prepare(
+            flags.split(), device="cuda", dtype=torch.float32))
+        A, mg = case.A, case.mg
+        A64 = struct_laplacian(shape, dtype=torch.float64, device="cuda")
+        x_star, b = None, case.b
+        if dims == 2:
+            x_star = torch.from_numpy(np.random.default_rng(16).random(
+                shape)).cuda()
+            b = A64.mv(x_star).float()
+        hold_struct(what, mg, kernels, torch, held)
+        (x, info), warm_ms, grew = timed(kernels, torch,
+                                         lambda: case.solve(b))
+        it = max(int(info.iterations), 1)
+        if sid == 21:
+            ops = uncounted(kernels, lambda: device_kernels(
+                torch, lambda: case.solve(b)))
+            per_it = ops / max(mg.dscg_iterations + mg.mg_iterations, 1)
+            extra = {"dscg_iterations": mg.dscg_iterations,
+                     "mg_iterations": mg.mg_iterations}
+        else:
+            # one iteration's work: a cycle and a matvec (the Krylov
+            # vector ops, ~10 kernels, are not in it)
+            f = b.reshape(-1)
+            one = (lambda: (mg.precond()(f), A.mv(f))) if sid != 1 else \
+                (lambda: (mg.cycle(b, b), A.mv(b)))
+            per_it = uncounted(kernels, lambda: device_kernels(torch, one))
+            extra = {}
+        rec = {"flags": flags, "setup_s": setup_s,
+               "levels": struct_levels(mg),
+               "device_kernels_per_iteration": per_it,
+               "dia_launches_per_iteration": sum(
+                   grew[k] for k in STRUCT_KERNELS) / it}
+        if x_star is not None:
+            rec["x_star_rel_err"] = float(
+                (x.reshape(shape).double() - x_star).norm() / x_star.norm())
+        rec.update(extra)
+        check_solve(what, torch, x.reshape(-1), info, A64, b.reshape(-1),
+                    warm_ms, grew, extra=rec)
+        require(sum(grew[k] for k in STRUCT_KERNELS) > 0,
+                f"{what} launched neither DIA kernel")
+        if sid == 11:
+            lv = mg.hierarchy.levels
+            timing_ops[f"{dims}-D level 0"] = lv[0].A
+            timing_ops[f"{dims}-D PFMG level 1 (probed)"] = lv[1].A
+        del case, A, A64, b, x, mg
+        torch.cuda.empty_cache()
+        log(json.dumps({"phase": "struct_phase", "part": what,
+                        "seconds": time.perf_counter() - t0}))
+    return dict(kernels.LAUNCHES), timing_ops
+
+
+def struct_kernel_rows(torch, ops) -> dict:
+    """Kernels 1 and 2 on the struct operators' DIA views (the static and
+    the dynamic kernel on the same planes): time, bound, the plain
+    version's time and one CSR product's, for the kernels line's
+    other_shapes."""
+    from hypre_tpu_torch.seq import dia as dia_mod
+    from hypre_tpu_torch.struct.matrix import dia_view
+
+    rng = np.random.default_rng(17)
+    rows = {k: [] for k in STRUCT_KERNELS}
+    for label, A in ops.items():
+        static, dyn = A.dia, dia_view(A, specialize=False)
+        D, n = static.D, static.n_rows
+        x = torch.from_numpy(rng.standard_normal(n)).to("cuda",
+                                                         torch.float32)
+        csr = csr_of_dia(static, torch)
+        lib = (csr @ x[:, None])[:, 0]
+        lib_ms = time_ms(lambda: csr @ x[:, None], torch)
+        bms, bby = bound(D * n * 4 + 2 * n * 4 + D * 4, 2.0 * D * n,
+                         "float32")
+        for name, M, plain in (
+            ("dia_spmv_static", static,
+             lambda: dia_mod.dia_spmv_static_plain(static.dvals,
+                                                   static.offsets_static, x)),
+            ("dia_spmv", dyn,
+             lambda: dia_mod.dia_spmv_plain(dyn.dvals, dyn.offsets, x,
+                                            dyn.margin)),
+        ):
+            require((M.offsets_static is not None)
+                    == (name == "dia_spmv_static"),
+                    f"{label}: {name} is not the view's kernel")
+            y = M.mv(x)
+            _, ab = rel_err(y, plain(), torch)
+            rel_lib, _ = rel_err(y, lib, torch)
+            rec = {"check": name, "operator": f"struct {label}",
+                   "shape": [D, n], "max_abs_err": ab, "tol": 0.0,
+                   "rel_err_vs_csr": rel_lib,
+                   "ms": time_ms(lambda: M.mv(x), torch),
+                   "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+                   "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms}
+            log(json.dumps(rec))
+            require(ab == 0.0, f"{name} on struct {label} differs from "
+                    f"the plain version by {ab}")
+            require(rel_lib <= 1e-5, f"{name} on struct {label}: rel err "
+                    f"{rel_lib} against the CSR product")
+            rows[name].append(rec)
+    return rows
+
+
+def struct_small_runs(torch, device) -> dict:
+    """Every struct driver id at its STRUCT_SMALL flags on ``device``, in
+    float64 and in float32 (at STRUCT_F32_TOL): the solve's iterations
+    and the set-up hierarchy's cdir sequence, stencil offsets and
+    coefficients."""
+    from hypre_tpu_torch.drivers import struct as drv
+
+    out = {}
+    for flags, _ in STRUCT_SMALL:
+        for dtype in (torch.float64, torch.float32):
+            argv = flags.split()
+            if dtype == torch.float32:
+                argv = [a for i, a in enumerate(argv) if a != "-tol" and (
+                    i == 0 or argv[i - 1] != "-tol")]
+                argv += ["-tol", str(STRUCT_F32_TOL)]
+            case = drv.prepare(argv, device=device, dtype=dtype)
+            mg = case.mg
+            _, info = case.solve()
+            rec = {"iterations": int(info.iterations),
+                   "converged": bool(info.converged)}
+            if hasattr(mg, "dscg_iterations"):
+                rec["dscg_mg"] = [mg.dscg_iterations, mg.mg_iterations]
+            if getattr(mg, "hierarchy", None) is not None:
+                rec["cdirs"] = mg.hierarchy.cdirs
+            if mg is not None and not hasattr(mg, "dscg_iterations"):
+                ops = [M for _, M in struct_operators(mg)]
+                rec["offsets"] = [list(M.stencil.offsets) for M in ops]
+                rec["coeffs"] = [M.coeffs.double().cpu().numpy()
+                                 for M in ops]
+            out[(flags, str(dtype))] = rec
+    return out
+
+
+def struct_card_vs_cpu(torch):
+    """Phase 14's card-vs-CPU part: in float64 the golden iterations on
+    both; in both types a converged solve, equal iterations, cdir
+    sequences and stencil offsets, coefficients to STRUCT_COEFF_RTOL
+    (float32) and 1e-12 (float64)."""
+    out = {dev: struct_small_runs(torch, dev) for dev in ("cuda", "cpu")}
+    golden = dict(STRUCT_SMALL)
+    for key in out["cuda"]:
+        flags, dtype = key
+        got, want = out["cuda"][key], out["cpu"][key]
+        gaps = [float(np.abs(g - w).max(initial=0.0)
+                      / max(np.abs(w).max(initial=0.0), 1e-30))
+                for g, w in zip(got.pop("coeffs", []),
+                                want.pop("coeffs", []))]
+        gap = max(gaps, default=0.0)
+        tol = STRUCT_COEFF_RTOL if dtype == "torch.float32" else 1e-12
+        log(json.dumps({"card_vs_cpu": f"struct {flags} ({dtype})",
+                        "cuda": {k: v for k, v in got.items()
+                                 if k != "offsets"},
+                        "cpu": {k: v for k, v in want.items()
+                                if k != "offsets"},
+                        "coeff_gap": gap}))
+        require(got == want, f"struct {flags} ({dtype}): card and CPU "
+                "differ")
+        require(gap <= tol, f"struct {flags} ({dtype}): coefficients "
+                f"differ by {gap}")
+        require(got["converged"], f"struct {flags} ({dtype}) did not "
+                "converge")
+        if dtype == "torch.float64":
+            if golden[flags] is not None:
+                require(got["iterations"] == golden[flags],
+                        f"struct {flags}: {got['iterations']} iterations, "
+                        f"golden {golden[flags]}")
+
+
 def main() -> int:
     import torch
 
@@ -2612,6 +2911,19 @@ def main() -> int:
     t0 = time.perf_counter()
     precond_card_vs_cpu(H, kernels, torch)
     log(json.dumps({"phase": "precond_card_vs_cpu",
+                    "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    l_struct, struct_ops = struct_phase(H, kernels, torch, held)
+    new_phases.append(l_struct)
+    for name, recs in struct_kernel_rows(torch, struct_ops).items():
+        at_new_shapes[name].extend(recs)
+    del struct_ops
+    log(json.dumps({"phase": "struct_phase",
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    struct_card_vs_cpu(torch)
+    log(json.dumps({"phase": "struct_card_vs_cpu",
                     "seconds": time.perf_counter() - t0}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,7 +2,7 @@
 
 A second package beside ``hypre_tpu`` (the JAX reference, which it never
 imports). It mirrors the reference's layout — ``core/``, ``seq/``,
-``amg/``, ``krylov/``, ``precond/``, ``problems/`` — with plain functions
+``amg/``, ``krylov/``, ``precond/``, ``problems/``, ``struct/`` — with plain functions
 on tensors and frozen dataclasses that hold tensors. The reference's TPU kernels are
 hand-written CUDA kernels here (``csrc/``, built with nvcc at first use,
 see ``kernels.py``); each keeps a plain PyTorch version that runs on CPU
@@ -42,3 +42,6 @@ from hypre_tpu_torch.seq.dia import DiaMatrix
 from hypre_tpu_torch.seq.ell import EllMatrix, csr_to_ell, ell_spmv
 from hypre_tpu_torch.seq.fastmv import BandedEll
 from hypre_tpu_torch.seq.transfer_dia import TransferDia
+from hypre_tpu_torch.struct import (
+    PFMG, SMG, SparseMSG, StructHybrid, StructJacobi, StructMatrix,
+)

@@ -5,9 +5,10 @@ anywhere else) comes across as numpy arrays: ``ell_from_numpy`` for one
 ELL matrix, ``bsr_from_numpy`` for one block matrix, and
 ``hierarchy_from_numpy`` for a whole AMG hierarchy that the caller
 flattened into a dict of arrays (a ``TransferDia`` level and the true
-sizes of a row-padded hierarchy included), and ``saddle_from_numpy`` for
-the blocks of a saddle-point system. All place the result on ``device``
-(CUDA unless the caller names another).
+sizes of a row-padded hierarchy included), ``saddle_from_numpy`` for
+the blocks of a saddle-point system, and ``struct_from_numpy`` for a
+StructMatrix (one operator, or each level of a struct hierarchy). All
+place the result on ``device`` (CUDA unless the caller names another).
 """
 
 from __future__ import annotations
@@ -143,3 +144,19 @@ def saddle_from_numpy(d: dict, device=None):
         d[key].get("shifts"), device=device)
         for key in ("A", "B", "Bt", "C")}
     return SaddleSystem(**blocks)
+
+
+def struct_from_numpy(coeffs, offsets, shape, periodic=None, device=None):
+    """struct.StructMatrix from its (S, *shape) or (S,) coefficient array,
+    its S stencil offsets, the grid shape and the per-dim periodicity."""
+    from hypre_tpu_torch.struct.matrix import StructMatrix
+    from hypre_tpu_torch.struct.stencil import StructStencil
+
+    device = resolve_device(device)
+    return StructMatrix(
+        coeffs=_tensor(coeffs, device),
+        stencil=StructStencil(tuple(tuple(int(o) for o in off)
+                                    for off in offsets)),
+        shape=tuple(int(s) for s in shape),
+        periodic=None if periodic is None else tuple(bool(p)
+                                                     for p in periodic))

@@ -231,6 +231,11 @@ MAX_STATIC_D = 96
 STATIC_D_LADDER = (56, 64, 80, 96)
 
 
+def on_static_ladder(D: int) -> bool:
+    """Whether the static kernel is instantiated for D diagonals."""
+    return 1 <= D <= 48 or D in STATIC_D_LADDER
+
+
 @functools.lru_cache(maxsize=64)
 def _host_offsets(offsets: tuple):
     """The static kernel's offsets as a host int32 array, built once per
@@ -275,7 +280,7 @@ def dia_spmv_static(dvals, offsets_static, x, n_cols: int) -> torch.Tensor:
     if len(offsets_static) != D:
         raise ValueError(f"{len(offsets_static)} static offsets for {D} "
                          "diagonals")
-    if not 1 <= D <= MAX_STATIC_D or (D > 48 and D not in STATIC_D_LADDER):
+    if not on_static_ladder(D):
         raise ValueError("static DIA kernel takes 1..48 diagonals or one of "
                          f"{STATIC_D_LADDER}, got {D}")
     offs = _host_offsets(tuple(int(o) for o in offsets_static))

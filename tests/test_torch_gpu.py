@@ -689,3 +689,74 @@ def test_ij_driver_on_card_equals_cpu(flags, dtype):
         launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         assert (launched["dia_spmv"] > 0) == (device == "cuda")
     assert its["cuda"] == its["cpu"]
+
+
+STRUCT_VIEWS = [
+    ("constant 5-pt", dict(shape=(64, 48))),
+    ("variable 7-pt", dict(shape=(20, 21, 22), constant=False,
+                           weights=(1.0, 0.5, 2.0))),
+    ("periodic x", dict(shape=(64, 48), periodic=(True, False))),
+    ("periodic y z", dict(shape=(12, 14, 16), periodic=(False, True, True))),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,kw", STRUCT_VIEWS,
+                         ids=[v[0] for v in STRUCT_VIEWS])
+def test_struct_dia_view_matches_plain_on_card(label, kw):
+    """A StructMatrix's DIA view on the card (static and dynamic kernel)
+    against the plain DIA version and the CPU's shift-and-add, bit for
+    bit; struct_matvec refuses a CUDA tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.problems.struct_problems import struct_laplacian
+    from hypre_tpu_torch.struct import matrix
+
+    rng = np.random.default_rng(12)
+    for dtype in (torch.float32, torch.float64):
+        A = struct_laplacian(dtype=dtype, device="cuda", **kw)
+        x = torch.from_numpy(rng.standard_normal(A.shape)).to("cuda", dtype)
+        cpu = matrix.struct_matvec(A.to("cpu"), x.cpu())
+        for view, kernel in ((A.dia, "dia_spmv_static"),
+                             (matrix.dia_view(A, specialize=False),
+                              "dia_spmv")):
+            before = kernels.LAUNCHES[kernel]
+            y = view.mv(x.reshape(-1))
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[kernel] == before + 1
+            plain = dia.dia_spmv_plain(view.dvals, view.offsets,
+                                       x.reshape(-1), view.margin)
+            assert torch.equal(y, plain)
+            assert torch.equal(y.cpu().reshape(A.shape), cpu)
+        before = kernels.LAUNCHES["dia_spmv_static"]
+        assert torch.equal(A.mv(x), A.dia.mv(x.reshape(-1)).reshape(A.shape))
+        assert kernels.LAUNCHES["dia_spmv_static"] == before + 2
+        with pytest.raises(ValueError, match="CPU tensors"):
+            matrix.struct_matvec(A, x)
+
+
+@pytest.mark.gpu
+def test_struct_solvers_on_card_equal_cpu():
+    """PFMG-PCG and SMG-PCG through the struct driver: the card's
+    iterations and cdir sequence are the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import contextlib
+    import io as _io
+
+    from hypre_tpu_torch.drivers import struct as drv
+    from hypre_tpu_torch.problems.struct_problems import struct_laplacian
+    from hypre_tpu_torch.struct import PFMG
+
+    for flags in ("-solver 11 -n 32 32 1 -tol 1e-6",
+                  "-solver 10 -n 12 12 12 -tol 1e-6"):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            with contextlib.redirect_stdout(_io.StringIO()):
+                got[dev] = drv.run(flags.split(), device=dev,
+                                   dtype=torch.float32)[0]
+        assert got["cuda"] == got["cpu"], flags
+    cd = {dev: PFMG().setup(struct_laplacian(
+        (40, 24, 16), dtype=torch.float32, device=dev)).hierarchy.cdirs
+        for dev in ("cuda", "cpu")}
+    assert cd["cuda"] == cd["cpu"]

@@ -45,7 +45,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.precond.ilu_schur\n"
         "import hypre_tpu_torch.precond.saddle\n"
         "import hypre_tpu_torch.core.error, hypre_tpu_torch.stats\n"
-        "import hypre_tpu_torch.drivers.ij\n"
+        "import hypre_tpu_torch.drivers.ij, hypre_tpu_torch.drivers.struct\n"
+        "import hypre_tpu_torch.struct, hypre_tpu_torch.struct.smg\n"
+        "import hypre_tpu_torch.struct.sparse_msg, hypre_tpu_torch.struct.io\n"
+        "import hypre_tpu_torch.struct.hybrid, hypre_tpu_torch.struct.cycred\n"
+        "import hypre_tpu_torch.problems.struct_problems\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu', 'scipy')]\n"
         "assert not bad, bad\n"
@@ -71,8 +75,13 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "block_amg.py", "ams.py", "ads.py", "ame.py", "multivector.py",
             "maxwell.py", "ilu.py", "ic.py", "euclid.py", "fsai.py",
             "parasails.py", "schwarz.py", "poly.py", "ilu_schur.py",
-            "saddle.py", "error.py", "stats.py"} <= names
-    assert ROOT / "hypre_tpu_torch" / "drivers" / "ij.py" in PORT_FILES
+            "saddle.py", "error.py", "stats.py", "stencil.py", "matrix.py",
+            "probe.py", "semi.py", "relax.py", "cycred.py", "jacobi.py",
+            "pfmg.py", "smg.py", "sparse_msg.py",
+            "struct_problems.py"} <= names
+    for rel in ("drivers/ij.py", "drivers/struct.py", "struct/hybrid.py",
+                "struct/io.py", "struct/__init__.py"):
+        assert ROOT / "hypre_tpu_torch" / rel in PORT_FILES
     for path in PORT_FILES:
         text = path.read_text()
         assert not pattern.search(text), path
