@@ -114,7 +114,8 @@ Phases (any failure exits non-zero before the last line is printed):
     port's struct driver (``prepare``, then ``solve``): PFMG-PCG
     and SMG-PCG on the 2-D 5-pt STRUCT_N2D^2 and the 3-D 7-pt
     STRUCT_N3D^3, PFMG, SparseMSG-PCG and StructHybrid at STRUCT_N2D^2
-    (the 2-D paths for a manufactured x*). Each prints its setup seconds,
+    (the 2-D paths for a manufactured x*; 3-D SMG-PCG solved once and
+    not profiled, STRUCT_ONCE_CUT). Each prints its setup seconds,
     levels (shape, cdir, stencil size, DIA planes), iterations, warm ms,
     f64 true residual, DIA launches per iteration and the card's kernels
     of all ops per iteration, must converge under TRUE_RESIDUAL_LIMIT and
@@ -125,7 +126,29 @@ Phases (any failure exits non-zero before the last line is printed):
     iterations, the goldens' where there is one; in float32 and float64
     equal cdir sequences and stencil offsets, coefficients to
     STRUCT_COEFF_RTOL in float32.
-15. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+15. hypre's semi-structured layer at full width, f32 at rtol 1e-6, each
+    path for a manufactured x*: through the port's sstruct driver
+    (``prepare``, then ``solve``) PCG + Split(PFMG) and PCG + Split(SMG)
+    on two SSTRUCT_N^2 parts glued along an edge, Split standalone at
+    SPLIT_N^2 (cut, SPLIT_CUT), SysPFMG standalone at -eps SYS_EPS (and
+    under PCG), FAC standalone (and under PCG) on the composite grid of
+    SSTRUCT_N^2 coarse cells with a 2x patch, SStruct Maxwell (AMS-PCG)
+    on the curl-curl + 0.05 I system of SSTRUCT_N^2 cells; by the API
+    SysPFMG with jacobi, node-jacobi and node-rbgs on the strong-coupling
+    system, FEM assembly (FEM_CUT) and the FEI sequence (FEI_CUT) under
+    PCG-BoomerAMG. Each prints its setup seconds (assembly apart),
+    iterations, warm ms, f64 true residual and x* error, formats,
+    launches per iteration and the card's kernels of all ops per
+    iteration, must converge under TRUE_RESIDUAL_LIMIT and launch one of
+    kernels 1-4; every DIA view is held against the plain version. The
+    kernels are timed on the system DIA views, U's view and FAC's and
+    Maxwell's banded levels. Then every SSTRUCT_GOLDEN flag set through
+    the driver on the card and on the CPU: in float64 the goldens'
+    iterations, in float32 (SSTRUCT_F32_TOL) and float64 equal
+    iterations, SysPFMG cdirs, offsets and coefficients, FAC's Galerkin
+    operators; the nested-patch FAC and the two-part FEM problem at test
+    size alike.
+16. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -327,6 +350,14 @@ STRUCT_PATHS = [("PFMG-PCG", 11, 2), ("SMG-PCG", 10, 2), ("PFMG-PCG", 11, 3),
                 ("SMG-PCG", 10, 3), ("PFMG", 1, 2), ("SparseMSG-PCG", 12, 2),
                 ("StructHybrid", 21, 2)]
 STRUCT_KERNELS = ("dia_spmv", "dia_spmv_static")
+# (driver id, dims) of the struct paths solved once (their first call is
+# the warm_ms) and not profiled: 3-D SMG-PCG at 128^3, ~197 000 kernels
+# an iteration, took 61.4 s of the run with one solve
+# and the profiled iteration (NVIDIA H100 80GB HBM3, 700.00 W), the
+# whole run 999 s once phase 15 came in
+STRUCT_ONCE = {(10, 3)}
+STRUCT_ONCE_CUT = ("3-D SMG-PCG at 128^3: one solve, no profiled "
+                   "iteration, to keep the whole run under ~1000 s")
 # card against CPU: tests/test_drivers.py's STRUCT_GOLDEN flags with their
 # golden iterations (float64), and the ids they do not cover (None)
 STRUCT_SMALL = [
@@ -350,6 +381,47 @@ STRUCT_COEFF_RTOL = 1e-5
 # goldens' 1e-5 to 1e-8 lie under what standalone SMG and PFMG reach in
 # float32 at these sizes (they stall at 1.5e-5 and 2.9e-5 relative)
 STRUCT_F32_TOL = 1e-4
+# The sstruct phase (15): the sstruct driver's ids (src/test/sstruct.c,
+# TEST_sstruct) and the layer's API, float32 at rtol 1e-6: two glued
+# SSTRUCT_N^2 parts (2.1 M unknowns), the two-variable system on
+# SSTRUCT_N^2, the composite grid of SSTRUCT_N^2 coarse cells (~1.4 M
+# DOFs) and the curl-curl system on SSTRUCT_N^2 cells (2.1 M edges)
+SSTRUCT_N = 1024
+SSTRUCT_RTOL = 1e-6
+SSTRUCT_MAXITER = 1000
+# Split standalone's iterations grow linearly with n (block Jacobi over
+# the parts with the U couplings lagged): 63 at 12^2, 88 at 24^2, 184 at
+# 48^2 in the reference (CPU, f64); 55 / 99 / 172 / 290 at 16^2 - 128^2
+# in the port (CPU, f32, b = A x*)
+SPLIT_N = 128
+SPLIT_CUT = ("Split standalone (id 20) at 2 x 128^2: its iterations grow "
+             "linearly with n, ~290 at 128^2, about 4000 at 1024^2")
+# the driver's default eps 0.1 makes [L, eps I; eps I, L] indefinite
+# past n ~ 13 (lambda_min(L) ~ 2 (pi / (n + 1))^2 < eps); 1e-5 keeps it
+# SPD at 1024^2 (lambda_min ~ 1.9e-5)
+SYS_EPS = 1e-5
+# pointwise Jacobi on the strong-coupling system: 91-97 cycles at 64^2
+# and 256^2 (port on the CPU, f32)
+SYS_RELAX_MAXITER = 300
+# FEM and FEI assemble one element per call (hypre's API): host loops of
+# ~37 us (AddFEMValues + AddFEMRHS) and ~24 us (sumInElemMatrix + RHS)
+# an element (port on the CPU; ~31 and ~24 us on the H100 machine's
+# host), so the sizes keep each loop near 4-5 s
+FEM_N = 256
+FEM_CUT = ("FEM two parts of 256^2 elements (131 072 calls): one "
+           "AddFEMValues call per element, ~37 us each on the host")
+FEI_N = 384
+FEI_CUT = ("FEI on 384^2 Q1 elements (147 456 calls): one "
+           "sumInElemMatrix/RHS call per element, ~24 us each on the host")
+SSTRUCT_KERNELS = ("dia_spmv", "dia_spmv_static", "dia_rows",
+                   "dia_rows_static", "banded_spmv", "banded_spmv_t")
+# card against CPU: tests/test_drivers.py's SSTRUCT_GOLDEN flags with
+# their golden iterations (float64); the float32 runs at SSTRUCT_F32_TOL
+SSTRUCT_GOLDEN = [
+    ("-solver 10 -n 12 -tol 1e-8", 16), ("-solver 11 -n 12 -tol 1e-8", 20),
+    ("-solver 20 -n 12 -tol 1e-8", 63), ("-solver 3 -n 16 -tol 1e-7", 16),
+    ("-solver 28 -n 12 -tol 1e-8", 15), ("-solver 120 -n 10 -tol 1e-8", 10)]
+SSTRUCT_F32_TOL = 1e-4
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -852,6 +924,20 @@ def csr_of_dia(D, torch):
     cols = rows + D.offsets.long()[d]
     coo = torch.sparse_coo_tensor(torch.stack([rows, cols]),
                                   D.dvals[d, rows], size=D.shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def csr_of_banded(M, torch):
+    """torch CSR tensor of a BandedEll's nonzeros, from its slot-major
+    payload (an optimized hierarchy keeps no ELL; yardstick only)."""
+    warnings.filterwarnings("ignore", message="Sparse")
+    n = M.n_rows
+    base = M.starts.long().repeat_interleave(M.B)[:n]
+    vals = M.vals_t[:, :n]
+    cols = base[None, :] + M.lcols_t[:, :n].long()
+    s, rows = torch.nonzero(vals, as_tuple=True)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols[s, rows]]),
+                                  vals[s, rows], size=M.shape)
     return coo.coalesce().to_sparse_csr()
 
 
@@ -1456,6 +1542,15 @@ def timed(kernels, torch, fn):
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     return out, warm_ms, {k: kernels.LAUNCHES[k] - before[k]
+                          for k in kernels.LAUNCHES}
+
+
+def first_call(kernels, torch, fn):
+    """``timed`` for a long solve: the first call only, its host ms after
+    a synchronize and its launches."""
+    before = dict(kernels.LAUNCHES)
+    out, s = synced(torch, fn)
+    return out, s * 1e3, {k: kernels.LAUNCHES[k] - before[k]
                           for k in kernels.LAUNCHES}
 
 
@@ -2617,12 +2712,13 @@ def struct_levels(mg) -> list:
     return []
 
 
-def hold_struct(label, mg, kernels, torch, held):
-    """Every DIA view of a struct path against the plain version (one
-    launch each, not counted), summarized as one record per kernel."""
+def hold_views(label, ops, kernels, torch, held):
+    """Every DIA view of ``ops`` ((name, DiaMatrix) pairs) against the
+    plain version (one launch each, not counted), summarized as one record
+    per kernel in ``held``."""
     got = []
-    for name, M in struct_operators(mg):
-        hold_dia(M.dia, f"{label} {name}", kernels, torch, got)
+    for name, M in ops:
+        hold_dia(M, f"{label} {name}", kernels, torch, got)
     for kernel in STRUCT_KERNELS:
         mine = [h for h in got if h["kernel"] == kernel]
         if mine:
@@ -2667,9 +2763,11 @@ def struct_phase(H, kernels, torch, held):
             x_star = torch.from_numpy(np.random.default_rng(16).random(
                 shape)).cuda()
             b = A64.mv(x_star).float()
-        hold_struct(what, mg, kernels, torch, held)
-        (x, info), warm_ms, grew = timed(kernels, torch,
-                                         lambda: case.solve(b))
+        hold_views(what, [(name, M.dia) for name, M in
+                          struct_operators(mg)], kernels, torch, held)
+        (x, info), warm_ms, grew = (
+            first_call if (sid, dims) in STRUCT_ONCE else timed)(
+                kernels, torch, lambda: case.solve(b))
         it = max(int(info.iterations), 1)
         if sid == 21:
             ops = uncounted(kernels, lambda: device_kernels(
@@ -2683,9 +2781,14 @@ def struct_phase(H, kernels, torch, held):
             f = b.reshape(-1)
             one = (lambda: (mg.precond()(f), A.mv(f))) if sid != 1 else \
                 (lambda: (mg.cycle(b, b), A.mv(b)))
-            per_it = uncounted(kernels, lambda: device_kernels(torch, one))
+            per_it = None if (sid, dims) in STRUCT_ONCE else uncounted(
+                kernels, lambda: device_kernels(torch, one))
             extra = {}
         rec = {"flags": flags, "setup_s": setup_s,
+               "warm_ms_of": "the first call" if (sid, dims) in STRUCT_ONCE
+               else "the second call",
+               "cut": STRUCT_ONCE_CUT if (sid, dims) in STRUCT_ONCE
+               else None,
                "levels": struct_levels(mg),
                "device_kernels_per_iteration": per_it,
                "dia_launches_per_iteration": sum(
@@ -2826,6 +2929,581 @@ def struct_card_vs_cpu(torch):
                         f"golden {golden[flags]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: hypre's semi-structured layer at full width
+# ---------------------------------------------------------------------------
+
+
+def facade_ops(label, amg) -> list:
+    """(label, operator) for every level operator of a facade's
+    hierarchy."""
+    ops = []
+    for li, lv in enumerate(amg.hierarchy.levels):
+        ops += [(f"{label} A{li}", lv.A), (f"{label} P{li}", lv.P)]
+    return ops
+
+
+def split_ops(A, sp) -> list:
+    """The DIA views a Split path applies: each part's, U's and every
+    sub-solver operator's."""
+    ops = [(f"part{k}", P.dia) for k, P in enumerate(A.parts)]
+    ops.append(("U", A.U_op))
+    for k, sub in enumerate(sp.subs):
+        ops += [(f"part{k} {name}", M.dia)
+                for name, M in struct_operators(sub)]
+    return ops
+
+
+def sys_levels(sp) -> list:
+    return [{"shape": list(lv.A.shape), "cdir": lv.P[0].cdir,
+             "stencil": lv.A.stencil.size, "D": lv.A.dia.D,
+             "kernel": "dia_spmv_static" if lv.A.dia.offsets_static
+             is not None else "dia_spmv"} for lv in sp.levels] + [
+        {"shape": list(sp.coarse_A.shape),
+         "stencil": sp.coarse_A.stencil.size}]
+
+
+def fac_formats(fac) -> dict:
+    return {"levels": [{"n": lv.A.n_rows, "A": type(lv.A_op).__name__,
+                        "P": type(lv.P_op).__name__,
+                        "R": type(lv.R_op).__name__}
+                       for lv in fac.levels],
+            "base": {"levels": level_sizes(fac.coarse_amg.hierarchy),
+                     "formats": describe_formats(fac.coarse_amg.hierarchy)}}
+
+
+def strong_system(n, dtype, device):
+    """tests/test_sstruct.py's node-relaxation system, [[L + 3, 2.9],
+    [2.9, L + 3]]: SPD at every size, strongly coupled at each node."""
+    import torch
+
+    from hypre_tpu_torch.drivers import sstruct as drv
+    from hypre_tpu_torch.sstruct.syspfmg import SysStructMatrix
+
+    A = drv.coupled_system(n, 2.9, dtype=torch.float64, device="cpu")
+    coeffs = A.coeffs.clone()
+    ci = A.stencil.center_index()
+    coeffs[0, 0, ci] += 3.0
+    coeffs[1, 1, ci] += 3.0
+    return SysStructMatrix(coeffs=coeffs.to(device, dtype),
+                           stencil=A.stencil, shape=A.shape)
+
+
+def fem_two_parts(n, dtype, device, seconds=None):
+    """tests/test_sstruct.py's FEM problem: two n x n Q1 parts glued
+    along an edge (shared nodes), Dirichlet on the outer boundary, one
+    AddFEMValues call per element; ``seconds`` (a dict) takes the host
+    loop's and the assembly's seconds."""
+    from hypre_tpu_torch.sstruct import fem
+
+    ke = np.array([[2 / 3, -1 / 6, -1 / 3, -1 / 6],
+                   [-1 / 6, 2 / 3, -1 / 6, -1 / 3],
+                   [-1 / 3, -1 / 6, 2 / 3, -1 / 6],
+                   [-1 / 6, -1 / 3, -1 / 6, 2 / 3]])
+    t0 = time.perf_counter()
+    grid = fem.SStructFEMGrid([(n + 1, n + 1), (n + 1, n + 1)])
+    for p in (0, 1):
+        grid.set_fem_ordering(p, [0, 0, 0, 0],
+                              [(0, 0), (1, 0), (1, 1), (0, 1)])
+    for j in range(n + 1):
+        grid.share_node(1, (0, j), 0, (n, j))
+    M = fem.SStructFEMMatrix(grid, dtype=dtype, device=device)
+    fe = np.full(4, 0.25 / (2 * n * n))
+    for p in (0, 1):
+        for i in range(n):
+            for j in range(n):
+                M.add_fem_values(p, (i, j), ke)
+                M.add_fem_rhs(p, (i, j), fe)
+    bnd = set()
+    for j in range(n + 1):
+        bnd.add(grid.dof(0, (0, j), 0))
+        bnd.add(grid.dof(1, (n, j), 0))
+    for p in (0, 1):
+        for i in range(n + 1):
+            bnd.add(grid.dof(p, (i, 0), 0))
+            bnd.add(grid.dof(p, (i, n), 0))
+    t1 = time.perf_counter()
+    M.assemble(dirichlet=sorted(bnd))
+    if seconds is not None:
+        seconds.update(elements_s=t1 - t0,
+                       assembly_s=time.perf_counter() - t1)
+    return M
+
+
+def fei_q1(n, dtype, device, seconds=None):
+    """tests/test_fei.py's Q1 Poisson FEI sequence on an n x n element
+    mesh, u = 0 on the boundary, one sumInElemMatrix/RHS call per
+    element; ``seconds`` takes the host loop's and loadComplete's."""
+    from hypre_tpu_torch.fei import FEISystem
+
+    ke = np.array([[2 / 3, -1 / 6, -1 / 3, -1 / 6],
+                   [-1 / 6, 2 / 3, -1 / 6, -1 / 3],
+                   [-1 / 3, -1 / 6, 2 / 3, -1 / 6],
+                   [-1 / 6, -1 / 3, -1 / 6, 2 / 3]])
+    t0 = time.perf_counter()
+    s = FEISystem(dtype=dtype, device=device).initFields()
+    s.initElemBlock("blk", n * n, 4)
+    fe = np.full(4, 0.25 / (n * n))
+    for i in range(n):
+        for j in range(n):
+            conn = [(i, j), (i + 1, j), (i + 1, j + 1), (i, j + 1)]
+            s.sumInElemMatrix("blk", (i, j), conn, ke)
+            s.sumInElemRHS("blk", (i, j), conn, fe)
+    bnd = [(i, j) for i in range(n + 1) for j in range(n + 1)
+           if i in (0, n) or j in (0, n)]
+    s.loadNodeBCs(bnd, [0.0] * len(bnd))
+    t1 = time.perf_counter()
+    s.loadComplete()
+    if seconds is not None:
+        seconds.update(elements_s=t1 - t0,
+                       load_complete_s=time.perf_counter() - t1)
+    return s
+
+
+def sstruct_record(what, kernels, torch, held, run, A64, b, x_star, ops,
+                   one, extra, once=False):
+    """One phase-15 solve on the card: its DIA views held against plain,
+    the solve cold then warm (or its first call only, ``once``), the
+    card's kernels of all ops in ``one`` (one iteration's work) under the
+    profiler, then check_solve and a launch of one of kernels 1-4."""
+    hold_views(what, ops, kernels, torch, held)
+    (x, info), warm_ms, grew = (first_call if once else timed)(
+        kernels, torch, run)
+    rec = dict(extra, warm_ms_of="the first call" if once
+               else "the second call")
+    rec["device_kernels_per_iteration"] = uncounted(
+        kernels, lambda: device_kernels(torch, one))
+    if x_star is not None:
+        rec["x_star_rel_err"] = float((x.reshape(-1).double()
+                                       - x_star.reshape(-1)).norm()
+                                      / x_star.norm())
+    check_solve(what, torch, x.reshape(-1), info, A64, b.reshape(-1),
+                warm_ms, grew, extra=rec)
+    require(any(grew[k] > 0 for k in SSTRUCT_KERNELS),
+            f"{what} launched none of kernels 1-4")
+    return int(info.iterations)
+
+
+def x_star_rhs(A64, shape, seed, torch):
+    """(x*, b = A x* in float32) with x* uniform in [0, 1) from ``seed``,
+    formed in float64 on A's device."""
+    x = torch.from_numpy(np.random.default_rng(seed).random(shape)).to(
+        A64.device)
+    return x, A64.mv(x).float()
+
+
+def sstruct_phase(H, kernels, torch, held):
+    """Phase 15: the sstruct driver's ids and the layer's API at full
+    width, f32 at SSTRUCT_RTOL, each for a manufactured x* (b = A x*):
+    PCG + Split(PFMG) and PCG + Split(SMG) on two SSTRUCT_N^2 parts,
+    Split standalone at SPLIT_N^2 (SPLIT_CUT), SysPFMG standalone and
+    under PCG at -eps SYS_EPS, SysPFMG with each relaxation on the
+    strong-coupling system, FAC standalone and under PCG on the
+    composite grid of SSTRUCT_N^2 coarse cells, SStruct Maxwell on
+    SSTRUCT_N^2 cells, FEM assembly (FEM_CUT) and FEI (FEI_CUT) under
+    PCG-BoomerAMG. Each prints its setup seconds, iterations, warm ms,
+    f64 true residual, x* error, formats, launches per iteration and the
+    card's kernels of all ops per iteration, must converge under
+    TRUE_RESIDUAL_LIMIT and launch one of kernels 1-4; every DIA view is
+    held against the plain version. Returns the launches and the
+    operators the kernels line times."""
+    from hypre_tpu_torch.drivers import sstruct as drv
+    from hypre_tpu_torch.seq import fastmv
+    from hypre_tpu_torch.sstruct import SysPFMG
+
+    f32, f64 = torch.float32, torch.float64
+    n, tol, mx = SSTRUCT_N, SSTRUCT_RTOL, SSTRUCT_MAXITER
+    kernels.reset_launches()
+    timing = {}
+
+    def part_done(what, t0):
+        torch.cuda.empty_cache()
+        log(json.dumps({"phase": "sstruct_phase", "part": what,
+                        "seconds": time.perf_counter() - t0}))
+
+    # the Split paths on the two glued parts
+    for label, sid, size, once in (("PCG+Split(PFMG)", 11, n, False),
+                                   ("PCG+Split(SMG)", 10, n, True),
+                                   ("Split", 20, SPLIT_N, True)):
+        t0 = time.perf_counter()
+        what = f"{label} 2x{size}^2"
+        flags = f"-solver {sid} -n {size} -tol {tol} -max_iter {mx}"
+        case, setup_s = synced(torch, lambda: drv.prepare(
+            flags.split(), device="cuda", dtype=f32))
+        _, A64 = drv.two_part_problem(size, dtype=f64, device="cuda")
+        x_star, b = x_star_rhs(A64, A64.n_rows, 31, torch)
+        A, sp = case.A, case.solver
+        one = ((lambda: (sp.precond()(b), A.mv(b))) if sid != 20
+               else (lambda: sp._sweep(b, b)))
+        sstruct_record(what, kernels, torch, held, lambda: case.solve(b),
+                       A64, b, x_star, split_ops(A, sp), one, {
+                           "flags": flags, "setup_s": setup_s,
+                           "U": {"format": type(A.U_op).__name__,
+                                 "D": getattr(A.U_op, "D", None),
+                                 "row_list": getattr(A.U_op, "r_ptr",
+                                                     None) is not None},
+                           "part_levels": struct_levels(sp.subs[0])},
+                       once=once)
+        if sid == 11:
+            timing[f"U (2 x {size}^2 parts)"] = A.U_op
+        del case, A, A64, sp, b
+        part_done(what, t0)
+
+    # SysPFMG on -eps SYS_EPS, standalone and under PCG
+    t0 = time.perf_counter()
+    flags = f"-solver 3 -n {n} -eps {SYS_EPS} -tol {tol} -max_iter {mx}"
+    case, setup_s = synced(torch, lambda: drv.prepare(
+        flags.split(), device="cuda", dtype=f32))
+    A64 = drv.coupled_system(n, SYS_EPS, dtype=f64, device="cuda")
+    x_star, b = x_star_rhs(A64, (2, n, n), 32, torch)
+    A, sp = case.A, case.solver
+    ops = [(f"A{li}", lv.A.dia) for li, lv in enumerate(sp.levels)]
+    one = lambda: (sp.cycle(b, b), A.mv(b))  # noqa: E731
+    extra = {"flags": flags, "setup_s": setup_s, "levels": sys_levels(sp)}
+    sstruct_record(f"SysPFMG 2x{n}^2", kernels, torch, held,
+                   lambda: case.solve(b), A64, b, x_star, ops, one, extra)
+    sstruct_record(f"SysPFMG-PCG 2x{n}^2", kernels, torch, held,
+                   lambda: H.pcg(A.as_linear_op(), b.reshape(-1),
+                                 M=sp.precond(), rtol=tol, maxiter=mx,
+                                 device="cuda"),
+                   A64, b, x_star, [], one, extra)
+    timing[f"SysPFMG level 0 ({n}^2, 2 vars)"] = sp.levels[0].A.dia
+    timing["SysPFMG level 1 (probed)"] = sp.levels[1].A.dia
+    del case, A, A64, sp, b
+    part_done("SysPFMG", t0)
+
+    # SysPFMG's three relaxations on the strong-coupling system
+    t0 = time.perf_counter()
+    A, A64 = strong_system(n, f32, "cuda"), strong_system(n, f64, "cuda")
+    x_star, b = x_star_rhs(A64, (2, n, n), 33, torch)
+    for relax in ("jacobi", "node-jacobi", "node-rbgs"):
+        sp, setup_s = synced(torch, lambda: SysPFMG(
+            max_coarse_size=128, relax_type=relax).setup(A))
+        sstruct_record(
+            f"SysPFMG {relax} strong 2x{n}^2", kernels, torch, held,
+            lambda: sp.solve(b, rtol=tol, maxiter=SYS_RELAX_MAXITER), A64, b,
+            x_star, [(f"A{li}", lv.A.dia) for li, lv in enumerate(sp.levels)],
+            lambda: (sp.cycle(b, b), A.mv(b)),
+            {"setup_s": setup_s, "levels": len(sp.levels)})
+        del sp
+    del A, A64, b
+    part_done("SysPFMG relaxations", t0)
+
+    # FAC on the composite grid, standalone and under PCG
+    t0 = time.perf_counter()
+    flags = f"-solver 28 -n {n} -tol {tol} -max_iter {mx}"
+    case, setup_s = synced(torch, lambda: drv.prepare(
+        flags.split(), device="cuda", dtype=f32))
+    fac = case.solver
+    A64 = f64_of(case.A)
+    x_star, b = x_star_rhs(A64, A64.n_rows, 34, torch)
+    ops = []
+    for li, lv in enumerate(fac.levels):
+        ops += [(f"A{li}", lv.A_op), (f"P{li}", lv.P_op), (f"R{li}", lv.R_op)]
+    ops += facade_ops("base", fac.coarse_amg)
+    one = lambda: (fac.cycle(b), fac.A_op.mv(b))  # noqa: E731
+    extra = {"flags": flags, "setup_s": setup_s, "dofs": case.A.n_rows,
+             "formats": fac_formats(fac)}
+    sstruct_record(f"FAC {n}^2 composite", kernels, torch, held,
+                   lambda: case.solve(b), A64, b, x_star, ops, one, extra)
+    sstruct_record(f"FAC-PCG {n}^2 composite", kernels, torch, held,
+                   lambda: H.pcg(fac.A_op.mv, b, M=fac.precond(), rtol=tol,
+                                 maxiter=mx, device="cuda"),
+                   A64, b, x_star, [], one, extra)
+    for name, M in ops:
+        if isinstance(M, fastmv.BandedEll) and name in ("base A0",
+                                                        "base P0"):
+            timing[f"FAC {name}"] = M
+    del case, fac, A64, b, ops
+    part_done("FAC", t0)
+
+    # SStruct Maxwell on the edge curl-curl system
+    t0 = time.perf_counter()
+    flags = f"-solver 120 -n {n} -tol {tol} -max_iter {mx}"
+    case, setup_s = synced(torch, lambda: drv.prepare(
+        flags.split(), device="cuda", dtype=f32))
+    mw = case.solver
+    A64 = f64_of(case.A)
+    x_star, b = x_star_rhs(A64, A64.n_rows, 35, torch)
+    ops = [("A", mw.op)]
+    if mw.ams.B_G is not None:
+        ops += facade_ops("G", mw.ams.B_G)
+    for d, B in enumerate(mw.ams.B_Pi):
+        ops += facade_ops(f"Pi{d}", B)
+    M = mw.precond()
+    sstruct_record(f"Maxwell {n}^2 cells", kernels, torch, held,
+                   lambda: case.solve(b), A64, b, x_star, ops,
+                   lambda: (M(b), mw.op.mv(b)),
+                   {"flags": flags, "setup_s": setup_s, "edges": A64.n_rows,
+                    "A": type(mw.op).__name__, "ams": ams_levels(mw.ams)})
+    for name, op in ops:
+        if isinstance(op, fastmv.BandedEll) and name in ("G A0", "G P0"):
+            timing[f"Maxwell {name}"] = op
+    del case, mw, A64, b, ops, M
+    part_done("Maxwell", t0)
+
+    # FEM assembly and FEI, each under PCG with the BoomerAMG facade
+    for label, make, size in (("FEM two parts", fem_two_parts, FEM_N),
+                              ("FEI Q1", fei_q1, FEI_N)):
+        t0 = time.perf_counter()
+        secs = {}
+        obj = make(size, f32, "cuda", secs)
+        A = obj.A
+        A64 = f64_of(A)
+        x_star, b = x_star_rhs(A64, A.n_rows, 36, torch)
+        # the format both solves apply A through (FEISystem.solve builds
+        # the same one from A in every call)
+        op = fastmv.optimize_operator(A)
+        if label.startswith("FEI"):
+            # FEISystem.solve sets up its preconditioner in every call, as
+            # the reference's does: its warm ms include that setup, which
+            # the same facade (max_coarse_size 64) times here alone
+            obj.b = b
+            obj.parameters(["solver cg", "preconditioner boomeramg"])
+            amg, setup_s = synced(torch, lambda: H.BoomerAMG(
+                max_coarse_size=64).setup(A, device="cuda"))
+            run = lambda: obj.solve(rtol=tol, maxiter=mx)  # noqa: E731
+        else:
+            amg, setup_s = synced(torch, lambda: H.BoomerAMG(
+                max_coarse_size=1500).setup(A, device="cuda"))
+            run = lambda: H.pcg(op.mv, b, M=amg.precond(), rtol=tol,  # noqa
+                                maxiter=mx, device="cuda")
+        P = amg.precond()
+        sstruct_record(f"{label} {A.n_rows} dofs", kernels, torch, held, run,
+                       A64, b, x_star, facade_ops("amg", amg),
+                       lambda: (P(b), op.mv(b)),
+                       dict(secs, setup_s=setup_s, dofs=A.n_rows,
+                            levels=level_sizes(amg.hierarchy),
+                            formats=describe_formats(amg.hierarchy)))
+        del obj, A, A64, b, amg, P, op
+        part_done(label, t0)
+    return dict(kernels.LAUNCHES), timing
+
+
+def sstruct_kernel_rows(torch, ops) -> dict:
+    """The ported kernels on phase 15's operators at their shapes (the
+    system DIA views, U's view, FAC's and Maxwell's banded levels): time,
+    bound, the plain version's time and one CSR product's, for the
+    kernels line's other_shapes. A DIA view's ``bound_ms`` counts the
+    bytes of its layout; ``nnz_bound_ms`` those of the function alone: y
+    written, each nonzero's value and int32 column read once, and x at
+    the columns they reach (U's planes are mostly zero fill)."""
+    from hypre_tpu_torch.seq import dia as dia_mod
+    from hypre_tpu_torch.seq import fastmv
+
+    rng = np.random.default_rng(18)
+    rows = {}
+    for label, M in ops.items():
+        x = torch.from_numpy(rng.standard_normal(M.n_cols)).to(
+            "cuda", torch.float32)
+        if isinstance(M, dia_mod.DiaMatrix):
+            D, n = M.D, M.n_rows
+            csr = csr_of_dia(M, torch)
+            if M.r_ptr is not None:
+                name = ("dia_rows_static" if M.offsets_static is not None
+                        else "dia_rows")
+                nnz = int(M.r_ptr[-1])
+                nbytes = dia_mod.row_list_bytes(nnz, n, 4) + 2 * n * 4
+                flops = 2.0 * nnz
+
+                def plain(M=M, x=x):
+                    return dia_mod.dia_rows_plain(
+                        M.r_ptr, M.r_ids, M.r_vals, M.offsets, x, M.n_cols)
+            else:
+                name = ("dia_spmv_static" if M.offsets_static is not None
+                        else "dia_spmv")
+                nbytes = D * n * 4 + 2 * n * 4 + D * 4
+                flops = 2.0 * D * n
+
+                def plain(M=M, x=x):
+                    return dia_mod.dia_spmv_plain(M.dvals, M.offsets, x,
+                                                  M.margin)
+            kern = (lambda M=M, x=x: M.mv(x))
+            shape = [D, n]
+            nz = int((M.dvals != 0).sum())
+            nnz_bms, _ = bound(4 * (n + 2 * nz + min(nz, M.n_cols)),
+                               2.0 * nz, "float32")
+            extra = {"nonzeros": nz, "nnz_bound_ms": nnz_bms}
+        else:
+            name = "banded_spmv"
+            k, n_pad = M.vals_t.shape
+            csr = csr_of_banded(M, torch)
+            nbytes = k * n_pad * 8 + M.starts.numel() * 4 \
+                + (M.n_cols + M.n_rows) * 4
+            flops = 2.0 * k * M.n_rows
+
+            def kern(M=M, x=x):
+                return fastmv.banded_spmv(M, x)
+
+            def plain(M=M, x=x):
+                return fastmv.banded_spmv_plain(M.vals_t, M.lcols_t,
+                                                M.starts, x, M.n_rows, M.B)
+            shape = [k, n_pad]
+            extra = {}
+        y = kern()
+        rel, ab = rel_err(y, plain(), torch)
+        rel_lib, _ = rel_err(y, (csr @ x[:, None])[:, 0], torch)
+        bms, bby = bound(nbytes, flops, "float32")
+        tol = 1e-6 if name.startswith("banded") else 0.0
+        rec = {"check": name, "operator": f"sstruct {label}",
+               "shape": shape, "max_abs_err": ab, "tol": tol,
+               "rel_err_vs_csr": rel_lib,
+               "ms": time_ms(kern, torch),
+               "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+               "bound_ms": bms, "bound_by": bby,
+               "library_ms": time_ms(lambda: csr @ x[:, None], torch),
+               **extra}
+        log(json.dumps(rec))
+        require(rel <= tol, f"{name} on {label} differs from the plain "
+                f"version by {rel}")
+        require(rel_lib <= 1e-5, f"{name} on {label}: rel err {rel_lib} "
+                "against the CSR product")
+        rows.setdefault(name, []).append(rec)
+        if name == "banded_spmv" and M.t_vals is not None:
+            rows["banded_spmv_t"] = rows.get("banded_spmv_t", []) + [
+                banded_t_row(torch, f"sstruct {label}", M, csr, rng)]
+    return rows
+
+
+def banded_t_row(torch, label, M, csr, rng) -> dict:
+    """Kernel 4 on a banded operator's transpose schedule: y = M^T r
+    against the plain version and one CSR product of M^T."""
+    from hypre_tpu_torch.seq import fastmv
+
+    r = torch.from_numpy(rng.standard_normal(M.n_rows)).to("cuda",
+                                                           torch.float32)
+    csr_t = csr.t().to_sparse_csr()
+    nnz = int(M.t_colptr[-1])
+    bms, bby = bound(nnz * 8 + (M.n_rows + M.n_cols) * 4
+                     + (M.t_colptr.numel() + M.t_chunks.numel()) * 4,
+                     2.0 * nnz, "float32")
+
+    def kern():
+        return fastmv.banded_spmv_t(M, r)
+
+    def plain():
+        return fastmv.banded_spmv_t_plain(M.t_vals, M.t_rows, M.t_colptr, r)
+
+    y = kern()
+    rel, ab = rel_err(y, plain(), torch)
+    rel_lib, _ = rel_err(y, (csr_t @ r[:, None])[:, 0], torch)
+    rec = {"check": "banded_spmv_t", "operator": label, "nnz": nnz,
+           "shape": [M.n_cols, M.n_rows], "max_abs_err": ab, "tol": 1e-6,
+           "rel_err_vs_csr": rel_lib, "ms": time_ms(kern, torch),
+           "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+           "bound_ms": bms, "bound_by": bby,
+           "library_ms": time_ms(lambda: csr_t @ r[:, None], torch)}
+    log(json.dumps(rec))
+    require(rel <= 1e-6, f"banded_spmv_t on {label}: rel err {rel}")
+    require(rel_lib <= 1e-5, f"banded_spmv_t on {label}: rel err "
+            f"{rel_lib} against the CSR product")
+    return rec
+
+
+def fac_coarse_operators(fac) -> list:
+    """The Galerkin operators FAC's setup stored, dense: each coarser
+    level's A, then the matrix its base BoomerAMG was set up on."""
+    from hypre_tpu_torch.seq.ell import ell_to_csr
+
+    mats = [lv.A for lv in fac.levels[1:]] + [fac.coarse_A]
+    return [ell_to_csr(M).to_dense() for M in mats]
+
+
+def sstruct_small_runs(torch, device) -> dict:
+    """Every SSTRUCT_GOLDEN flag set through the driver on ``device``, in
+    float64 and in float32 (at SSTRUCT_F32_TOL), with the kernel formats
+    on both devices (``optimize=True``); SysPFMG's cdirs, offsets and
+    coefficients and FAC's Galerkin operators; then the nested-patch FAC
+    and the two-part FEM problem of tests/test_sstruct.py at their test
+    sizes."""
+    from hypre_tpu_torch.drivers import sstruct as drv
+    from hypre_tpu_torch.krylov import pcg
+    from hypre_tpu_torch.seq.ell import ell_to_csr
+    from hypre_tpu_torch.sstruct import fac as fac_mod
+
+    out = {}
+    for flags, _ in SSTRUCT_GOLDEN:
+        for dtype in (torch.float64, torch.float32):
+            argv = flags.split()
+            if dtype == torch.float32:
+                argv = argv[:argv.index("-tol")] + ["-tol",
+                                                    str(SSTRUCT_F32_TOL)]
+            case = drv.prepare(argv, device=device, dtype=dtype,
+                               optimize=True)
+            _, info = case.solve()
+            rec = {"iterations": int(info.iterations),
+                   "converged": bool(info.converged)}
+            sp = case.solver
+            if hasattr(sp, "cdirs") and hasattr(sp, "coarse_meta"):
+                rec["cdirs"] = sp.cdirs
+                rec["offsets"] = [list(lv.A.stencil.offsets)
+                                  for lv in sp.levels]
+                rec["coeffs"] = [lv.A.coeffs.double().cpu().numpy()
+                                 for lv in sp.levels]
+            if isinstance(sp, fac_mod.FAC):
+                rec["coeffs"] = fac_coarse_operators(sp)
+            out[(flags, str(dtype))] = rec
+    patches = [((2, 2), (8, 8)), ((4, 4), (6, 6))]
+    for dtype in (torch.float64, torch.float32):
+        A, masks, parents, nn = fac_mod.composite_poisson_nested(
+            10, patches, dtype=dtype, device=device)
+        fac = fac_mod.FAC().setup(A, masks, parents, device=device,
+                                  optimize=True)
+        b = torch.from_numpy(np.random.default_rng(7).standard_normal(
+            nn)).to(device, dtype)
+        _, info = fac.solve(b, rtol=1e-8 if dtype == torch.float64
+                            else SSTRUCT_F32_TOL, maxiter=80)
+        out[("FAC nested", str(dtype))] = {
+            "iterations": int(info.iterations),
+            "converged": bool(info.converged),
+            "coeffs": fac_coarse_operators(fac)}
+        M = fem_two_parts(6, dtype, device)
+        dinv = 1.0 / M.A.diagonal()
+        _, info = pcg(M.A.mv, M.b, M=lambda r: dinv * r,
+                      rtol=1e-10 if dtype == torch.float64
+                      else SSTRUCT_F32_TOL, device=device)
+        out[("FEM two parts", str(dtype))] = {
+            "iterations": int(info.iterations),
+            "converged": bool(info.converged),
+            "coeffs": [ell_to_csr(M.A).to_dense(), M.b.double().cpu()
+                       .numpy()]}
+    return out
+
+
+def sstruct_card_vs_cpu(torch):
+    """Phase 15's card-against-CPU part: in float64 the golden iterations
+    on both; in both types a converged solve, equal iterations, cdirs and
+    offsets, coefficients and Galerkin operators to STRUCT_COEFF_RTOL
+    (float32) and 1e-12 (float64)."""
+    out = {dev: sstruct_small_runs(torch, dev) for dev in ("cuda", "cpu")}
+    golden = dict(SSTRUCT_GOLDEN)
+    for key in out["cuda"]:
+        flags, dtype = key
+        got, want = out["cuda"][key], out["cpu"][key]
+        gaps = [float(np.abs(g - w).max(initial=0.0)
+                      / max(np.abs(w).max(initial=0.0), 1e-30))
+                for g, w in zip(got.pop("coeffs", []),
+                                want.pop("coeffs", []))]
+        gap = max(gaps, default=0.0)
+        tol = STRUCT_COEFF_RTOL if dtype == "torch.float32" else 1e-12
+        log(json.dumps({"card_vs_cpu": f"sstruct {flags} ({dtype})",
+                        "cuda": {k: v for k, v in got.items()
+                                 if k != "offsets"},
+                        "cpu": {k: v for k, v in want.items()
+                                if k != "offsets"},
+                        "coeff_gap": gap}))
+        require(got == want, f"sstruct {flags} ({dtype}): card and CPU "
+                "differ")
+        require(gap <= tol, f"sstruct {flags} ({dtype}): coefficients "
+                f"differ by {gap}")
+        require(got["converged"], f"sstruct {flags} ({dtype}) did not "
+                "converge")
+        if dtype == "torch.float64" and flags in golden:
+            require(got["iterations"] == golden[flags],
+                    f"sstruct {flags}: {got['iterations']} iterations, "
+                    f"golden {golden[flags]}")
+
+
 def main() -> int:
     import torch
 
@@ -2924,6 +3602,19 @@ def main() -> int:
     t0 = time.perf_counter()
     struct_card_vs_cpu(torch)
     log(json.dumps({"phase": "struct_card_vs_cpu",
+                    "seconds": time.perf_counter() - t0}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    l_sstruct, sstruct_ops = sstruct_phase(H, kernels, torch, held)
+    new_phases.append(l_sstruct)
+    for name, recs in sstruct_kernel_rows(torch, sstruct_ops).items():
+        at_new_shapes.setdefault(name, []).extend(recs)
+    del sstruct_ops
+    log(json.dumps({"phase": "sstruct_phase",
+                    "seconds": time.perf_counter() - t0}))
+    t0 = time.perf_counter()
+    sstruct_card_vs_cpu(torch)
+    log(json.dumps({"phase": "sstruct_card_vs_cpu",
                     "seconds": time.perf_counter() - t0}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,7 +2,8 @@
 
 A second package beside ``hypre_tpu`` (the JAX reference, which it never
 imports). It mirrors the reference's layout — ``core/``, ``seq/``,
-``amg/``, ``krylov/``, ``precond/``, ``problems/``, ``struct/`` — with plain functions
+``amg/``, ``krylov/``, ``precond/``, ``problems/``, ``struct/``,
+``sstruct/`` and ``fei.py`` — with plain functions
 on tensors and frozen dataclasses that hold tensors. The reference's TPU kernels are
 hand-written CUDA kernels here (``csrc/``, built with nvcc at first use,
 see ``kernels.py``); each keeps a plain PyTorch version that runs on CPU
@@ -25,6 +26,7 @@ from hypre_tpu_torch.core.config import ConvergenceInfo, resolve_device
 from hypre_tpu_torch.convert import (
     bsr_from_numpy, ell_from_numpy, hierarchy_from_numpy,
 )
+from hypre_tpu_torch.fei import FEISystem
 from hypre_tpu_torch.ij import IJMatrix, IJVector
 from hypre_tpu_torch.krylov import (
     bicgstab, block_op, cgnr, cogmres, flexgmres, gmres, lgmres, lobpcg, pcg,
@@ -44,4 +46,7 @@ from hypre_tpu_torch.seq.fastmv import BandedEll
 from hypre_tpu_torch.seq.transfer_dia import TransferDia
 from hypre_tpu_torch.struct import (
     PFMG, SMG, SparseMSG, StructHybrid, StructJacobi, StructMatrix,
+)
+from hypre_tpu_torch.sstruct import (
+    FAC, Maxwell, SplitSolver, SStructGrid, SStructMatrix, SysPFMG,
 )

@@ -7,7 +7,10 @@ ELL matrix, ``bsr_from_numpy`` for one block matrix, and
 flattened into a dict of arrays (a ``TransferDia`` level and the true
 sizes of a row-padded hierarchy included), ``saddle_from_numpy`` for
 the blocks of a saddle-point system, and ``struct_from_numpy`` for a
-StructMatrix (one operator, or each level of a struct hierarchy). All
+StructMatrix (one operator, or each level of a struct hierarchy), and
+``sys_struct_from_numpy`` for a SysPFMG system matrix (an SStructMatrix
+comes across as its parts and its U, through ``struct_from_numpy`` and
+``ell_from_numpy``). All
 place the result on ``device`` (CUDA unless the caller names another).
 """
 
@@ -160,3 +163,17 @@ def struct_from_numpy(coeffs, offsets, shape, periodic=None, device=None):
         shape=tuple(int(s) for s in shape),
         periodic=None if periodic is None else tuple(bool(p)
                                                      for p in periodic))
+
+
+def sys_struct_from_numpy(coeffs, offsets, shape, device=None):
+    """sstruct.SysStructMatrix from its (nvars, nvars, S, *shape)
+    coefficient array, its S stencil offsets and the grid shape."""
+    from hypre_tpu_torch.sstruct.syspfmg import SysStructMatrix
+    from hypre_tpu_torch.struct.stencil import StructStencil
+
+    device = resolve_device(device)
+    return SysStructMatrix(
+        coeffs=_tensor(coeffs, device),
+        stencil=StructStencil(tuple(tuple(int(o) for o in off)
+                                    for off in offsets)),
+        shape=tuple(int(s) for s in shape))

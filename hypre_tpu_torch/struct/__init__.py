@@ -7,8 +7,7 @@ the hand-written DIA kernel; Galerkin coarse operators are recovered by
 probing the composed R·A·P operator with lattice indicator vectors
 (``probe.py``). The solvers: PFMG, SMG, SparseMSG, Jacobi, cyclic
 reduction and the Hybrid escalation. The sharded layer (``par_struct``)
-and the SStruct object IO wait for the parallel and semi-structured
-layers.
+waits for the parallel layer.
 """
 
 from hypre_tpu_torch.struct.stencil import StructStencil, star_stencil, box_stencil

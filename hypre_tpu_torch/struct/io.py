@@ -5,11 +5,16 @@ of ``hypre_StructMatrixPrint/Read`` (``struct_mv/struct_matrix.c:1764,
 1856``), ``hypre_StructVectorPrint/Read`` (``struct_vector.c``) and the
 box-data scanners in ``struct_mv/struct_io.c``, in the reference's text
 format (header, ConstantCoefficient flag, Grid, Stencil, Data with one
-indexed value per line), so files pass between the two packages. The
-SStruct object functions wait for the semi-structured layer.
+indexed value per line), so files pass between the two packages; and
+the SStruct objects (``HYPRE_SStructMatrixPrint``/``VectorPrint``): a
+directory with one struct file per part, the U matrix as ``U.ij`` (the
+IJ-ASCII format of ``io.py``) and a JSON ``manifest``.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -113,3 +118,68 @@ def read_struct_vector(path: str, dtype=torch.float32, device=None):
         i, v = ln.split()
         out[int(i)] = float(v)
     return torch.from_numpy(out.reshape(shape)).to(device=device, dtype=dtype)
+
+
+# -- SStruct objects (one file per part + U matrix + manifest) ---------------
+
+
+def print_sstruct_matrix(prefix: str, A) -> None:
+    """HYPRE_SStructMatrixPrint analogue: ``prefix/`` directory with
+    ``part<k>`` struct files, ``U.ij`` (when present) and ``manifest``."""
+    from hypre_tpu_torch.io import write_ij_ascii
+
+    os.makedirs(prefix, exist_ok=True)
+    for k, P in enumerate(A.parts):
+        print_struct_matrix(os.path.join(prefix, f"part{k}"), P)
+    if A.U is not None:
+        write_ij_ascii(os.path.join(prefix, "U.ij"), A.U)
+    with open(os.path.join(prefix, "manifest"), "w") as f:
+        json.dump({"type": "SStructMatrix", "nparts": len(A.parts),
+                   "part_shapes": [list(s) for s in A.grid.part_shapes],
+                   "has_U": A.U is not None}, f)
+
+
+def read_sstruct_matrix(prefix: str, dtype=torch.float32, device=None):
+    """HYPRE_SStructMatrixRead analogue, on ``device`` (CUDA unless the
+    caller names another)."""
+    from hypre_tpu_torch.io import read_ij_ascii
+    from hypre_tpu_torch.seq.ell import csr_to_ell
+    from hypre_tpu_torch.sstruct.grid import SStructGrid
+    from hypre_tpu_torch.sstruct.matrix import SStructMatrix
+
+    device = resolve_device(device)
+    with open(os.path.join(prefix, "manifest")) as f:
+        man = json.load(f)
+    if man["type"] != "SStructMatrix":
+        raise ValueError(f"not an SStructMatrix directory: {prefix}")
+    parts = tuple(read_struct_matrix(os.path.join(prefix, f"part{k}"), dtype,
+                                     device) for k in range(man["nparts"]))
+    U = None
+    if man["has_U"]:
+        U = csr_to_ell(read_ij_ascii(os.path.join(prefix, "U.ij")),
+                       dtype=dtype, device=device)
+    grid = SStructGrid(tuple(tuple(s) for s in man["part_shapes"]))
+    return SStructMatrix(parts=parts, U=U, grid=grid)
+
+
+def print_sstruct_vector(prefix: str, grid, x) -> None:
+    """HYPRE_SStructVectorPrint analogue (flat global vector + grid)."""
+    os.makedirs(prefix, exist_ok=True)
+    x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+    for k, xp in enumerate(grid.split(x)):
+        print_struct_vector(os.path.join(prefix, f"part{k}"), xp)
+    with open(os.path.join(prefix, "manifest"), "w") as f:
+        json.dump({"type": "SStructVector", "nparts": grid.nparts,
+                   "part_shapes": [list(s) for s in grid.part_shapes]}, f)
+
+
+def read_sstruct_vector(prefix: str, dtype=torch.float32, device=None):
+    """HYPRE_SStructVectorRead analogue: the flat global vector on
+    ``device`` (CUDA unless the caller names another)."""
+    with open(os.path.join(prefix, "manifest")) as f:
+        man = json.load(f)
+    if man["type"] != "SStructVector":
+        raise ValueError(f"not an SStructVector directory: {prefix}")
+    return torch.cat([read_struct_vector(os.path.join(prefix, f"part{k}"),
+                                         dtype, device).reshape(-1)
+                      for k in range(man["nparts"])])

@@ -128,26 +128,11 @@ class StructMatrix:
         """y = A @ x through the DIA view. x is grid-shaped or flat, with
         any leading batch dims (one kernel launch per vector); y has x's
         shape."""
-        return self._per_vector(self.dia.mv, x)
+        return per_vector(self.dia.mv, x, self.shape)
 
     def mv_t(self, x: torch.Tensor) -> torch.Tensor:
         """y = A.T @ x through the DIA view's transpose; shapes as ``mv``."""
-        return self._per_vector(self.dia.mv_t, x)
-
-    def _per_vector(self, apply, x: torch.Tensor) -> torch.Tensor:
-        n = self.n_rows
-        if tuple(x.shape[x.dim() - self.ndim:]) == self.shape:
-            lead = x.shape[:x.dim() - self.ndim]
-        elif x.shape[-1] == n:
-            lead = x.shape[:-1]
-        else:
-            raise ValueError(f"shape mismatch: {self.shape} @ "
-                             f"{tuple(x.shape)}")
-        if not lead:
-            return apply(x.reshape(-1).contiguous()).reshape(x.shape)
-        xb = x.reshape(-1, n)
-        return torch.stack([apply(xb[k].contiguous())
-                            for k in range(xb.shape[0])]).reshape(x.shape)
+        return per_vector(self.dia.mv_t, x, self.shape)
 
     # -- flattened-operator views for the Krylov layer ------------------------
 
@@ -158,16 +143,39 @@ class StructMatrix:
     def to_dense(self) -> torch.Tensor:
         """Materialize as a dense (n, n) matrix — coarse direct solves and
         test oracles — from the DIA view's planes."""
-        view = self.dia
-        n = self.n_rows
-        dense = torch.zeros((n, n), dtype=self.dtype, device=self.device)
-        rows = torch.arange(n, device=self.device)
-        for d, o in enumerate(view.offsets.tolist()):
-            cols = rows + o
-            ok = (cols >= 0) & (cols < n)
-            dense.index_put_((rows[ok], cols[ok]), view.dvals[d][ok],
-                             accumulate=True)
-        return dense
+        return dia_dense(self.dia)
+
+
+def per_vector(apply, x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``apply`` (a flat DIA product) on x, which is ``shape``-shaped or
+    flat with any leading batch dims: one product per vector, the result
+    in x's shape."""
+    n = int(np.prod(shape))
+    if tuple(x.shape[x.dim() - len(shape):]) == tuple(shape):
+        lead = x.shape[:x.dim() - len(shape)]
+    elif x.shape[-1] == n:
+        lead = x.shape[:-1]
+    else:
+        raise ValueError(f"shape mismatch: {tuple(shape)} @ "
+                         f"{tuple(x.shape)}")
+    if not lead:
+        return apply(x.reshape(-1).contiguous()).reshape(x.shape)
+    xb = x.reshape(-1, n)
+    return torch.stack([apply(xb[k].contiguous())
+                        for k in range(xb.shape[0])]).reshape(x.shape)
+
+
+def dia_dense(view: DiaMatrix) -> torch.Tensor:
+    """A square DIA view's (n, n) dense matrix."""
+    n = view.n_rows
+    dense = torch.zeros((n, n), dtype=view.dtype, device=view.device)
+    rows = torch.arange(n, device=view.device)
+    for d, o in enumerate(view.offsets.tolist()):
+        cols = rows + o
+        ok = (cols >= 0) & (cols < n)
+        dense.index_put_((rows[ok], cols[ok]), view.dvals[d][ok],
+                         accumulate=True)
+    return dense
 
 
 def _landings(o: int, n: int, periodic: bool):

@@ -760,3 +760,93 @@ def test_struct_solvers_on_card_equal_cpu():
         (40, 24, 16), dtype=torch.float32, device=dev)).hierarchy.cdirs
         for dev in ("cuda", "cpu")}
     assert cd["cuda"] == cd["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nvars,shape", [(2, (64, 48)), (3, (20, 21, 22))])
+def test_sys_dia_view_matches_plain_on_card(nvars, shape):
+    """A SysStructMatrix's flat DIA view (random coefficients in every
+    block, a box stencil) on the card against the plain DIA version and
+    the CPU's shifted products, bit for bit against the plain version;
+    sys_matvec refuses a CUDA tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import itertools
+
+    from hypre_tpu_torch.convert import sys_struct_from_numpy
+    from hypre_tpu_torch.sstruct import syspfmg
+
+    rng = np.random.default_rng(nvars)
+    offsets = list(itertools.product(*[(-1, 0, 1)] * len(shape)))
+    if len(shape) == 3:  # the 7-pt star: 5 * 7 = 35 planes
+        offsets = [o for o in offsets if sum(map(abs, o)) <= 1]
+    coeffs = rng.standard_normal((nvars, nvars, len(offsets)) + shape)
+    for dtype in (torch.float32, torch.float64):
+        A = sys_struct_from_numpy(coeffs, offsets, shape, device="cuda")
+        A = syspfmg.SysStructMatrix(coeffs=A.coeffs.to(dtype),
+                                    stencil=A.stencil, shape=A.shape)
+        view = A.dia
+        assert view.D == (2 * nvars - 1) * len(offsets)
+        kernel = ("dia_spmv_static" if view.offsets_static is not None
+                  else "dia_spmv")
+        x = torch.from_numpy(rng.standard_normal((nvars,) + shape)).to(
+            "cuda", dtype)
+        before = kernels.LAUNCHES[kernel]
+        y = A.mv(x)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[kernel] == before + 1
+        plain = dia.dia_spmv_plain(view.dvals, view.offsets, x.reshape(-1),
+                                   view.margin)
+        assert torch.equal(y.reshape(-1), plain)
+        cpu = syspfmg.sys_matvec(A.to("cpu"), x.cpu())
+        assert close(y.cpu(), cpu, 1e-5 if dtype == torch.float32 else 1e-12)
+        with pytest.raises(ValueError, match="CPU tensors"):
+            syspfmg.sys_matvec(A, x)
+
+
+@pytest.mark.gpu
+def test_sstruct_mv_on_card_equals_cpu():
+    """The two-part SStructMatrix on the card: each part's DIA kernel and
+    U's DIA view, the bits of the CPU's plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.drivers import sstruct as drv
+    from hypre_tpu_torch.seq.dia import DiaMatrix
+
+    for dtype in (torch.float32, torch.float64):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            _, A = drv.two_part_problem(96, dtype=dtype, device=dev)
+            x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+                A.n_rows)).to(dev, dtype)
+            before = dict(kernels.LAUNCHES)
+            got[dev] = A.mv(x).cpu()
+            grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            assert isinstance(A.U_op, DiaMatrix)
+            if dev == "cuda":
+                assert grew["dia_spmv_static"] == 2
+                assert grew["dia_spmv"] + grew["dia_rows"] == 1
+        assert torch.equal(got["cuda"], got["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [
+    "-solver 10 -n 12 -tol 1e-8", "-solver 11 -n 12 -tol 1e-8",
+    "-solver 20 -n 12 -tol 1e-8", "-solver 3 -n 16 -tol 1e-7",
+    "-solver 28 -n 12 -tol 1e-8", "-solver 120 -n 10 -tol 1e-8"])
+def test_sstruct_driver_on_card_equals_cpu(flags):
+    """Every sstruct driver id at its golden flags, float64: the card's
+    iterations are the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import contextlib
+    import io as _io
+
+    from hypre_tpu_torch.drivers import sstruct as drv
+
+    got = {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(_io.StringIO()):
+            got[dev] = drv.run(flags.split(), device=dev,
+                               dtype=torch.float64)[0]
+    assert got["cuda"] == got["cpu"]

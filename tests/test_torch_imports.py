@@ -50,6 +50,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.struct.sparse_msg, hypre_tpu_torch.struct.io\n"
         "import hypre_tpu_torch.struct.hybrid, hypre_tpu_torch.struct.cycred\n"
         "import hypre_tpu_torch.problems.struct_problems\n"
+        "import hypre_tpu_torch.sstruct, hypre_tpu_torch.sstruct.fem\n"
+        "import hypre_tpu_torch.sstruct.split, hypre_tpu_torch.sstruct.fac\n"
+        "import hypre_tpu_torch.sstruct.syspfmg\n"
+        "import hypre_tpu_torch.sstruct.maxwell, hypre_tpu_torch.fei\n"
+        "import hypre_tpu_torch.drivers.sstruct\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu', 'scipy')]\n"
         "assert not bad, bad\n"
@@ -78,9 +83,12 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "saddle.py", "error.py", "stats.py", "stencil.py", "matrix.py",
             "probe.py", "semi.py", "relax.py", "cycred.py", "jacobi.py",
             "pfmg.py", "smg.py", "sparse_msg.py",
-            "struct_problems.py"} <= names
+            "struct_problems.py", "grid.py", "split.py", "syspfmg.py",
+            "fac.py", "fem.py", "fei.py"} <= names
     for rel in ("drivers/ij.py", "drivers/struct.py", "struct/hybrid.py",
-                "struct/io.py", "struct/__init__.py"):
+                "struct/io.py", "struct/__init__.py", "drivers/sstruct.py",
+                "sstruct/__init__.py", "sstruct/matrix.py",
+                "sstruct/maxwell.py", "fei.py"):
         assert ROOT / "hypre_tpu_torch" / rel in PORT_FILES
     for path in PORT_FILES:
         text = path.read_text()
