@@ -28,16 +28,20 @@ Phases (any failure exits non-zero before the last line is printed):
    BENCH_ITERATION_LIMIT iterations and take the same number of them. Per
    PCG iteration the dense DIA kernel runs 6 times (the level-0 A) and,
    with TransferDia, the row-list DIA kernel twice (the D = 64 transfer
-   planes, compacted by ``optimize_hierarchy``).
+   planes, compacted by ``optimize_hierarchy``; the static path takes the
+   same row-list kernel).
 4. Kernels against their plain PyTorch versions on the card, at both
    paths' shapes, with times (CUDA events), bounds and the time of one
    PyTorch call that computes the same function (``library_ms``: a CSR
    matrix product). The transpose kernel must also give the same bits in
    two runs; its schedule's size and build time are printed. The row-list
-   DIA kernels run on the TransferDia's two members and must give the bits
-   of the dense kernels' plain version, the same in two runs. The whole
-   level-0 transfer is timed by every route (TransferDia on the row list
-   and on the dense planes, banded, CSR).
+   DIA kernel runs on the TransferDia's two members and must give the bits
+   of the dense kernels' plain version, the same in two runs and with the
+   static offsets; it is timed against the bound of its layout's bytes and
+   against that of the function's bytes alone (``nnz_bound_ms``), with 1
+   and with 4 lanes a row beside it; a sweep over the listed rows' length
+   times both lane counts. The whole level-0 transfer is timed by every route
+   (TransferDia on the row list and on the dense planes, banded, CSR).
 5. Card against CPU: the pure-setup path at 24^3 in float64 and at 48^3 in
    float32 (where the banded kernels run), and the device setup with
    ``agg_num_levels=1`` at the same two sizes, on the card and on the CPU
@@ -45,8 +49,8 @@ Phases (any failure exits non-zero before the last line is printed):
    operator formats and PCG iteration count. Two device setups on the
    card at 48^3 must agree in every tensor, bit for bit.
 6. The BoomerAMG facade at 128^3, float32, b = ones: ``BoomerAMG(
-   max_coarse_size=1500).setup(A)`` on the card (pure setup, then the
-   kernel formats), its setup seconds, levels and ``stats()``; then
+   max_coarse_size=1500).setup(A)`` on the card (the host C++ setup that
+   "auto" takes, then the kernel formats), its setup seconds, levels and ``stats()``; then
    ``amg.precond()`` under pcg, gmres, flexgmres, cogmres and lgmres
    (k_dim=30) and bicgstab, and ``amg.solve``, at rtol 1e-6, maxiter 100;
    and ``BoomerAMG(setup_backend="device", agg_num_levels=1)`` under
@@ -147,8 +151,19 @@ Phases (any failure exits non-zero before the last line is printed):
     iterations, in float32 (SSTRUCT_F32_TOL) and float64 equal
     iterations, SysPFMG cdirs, offsets and coefficients, FAC's Galerkin
     operators; the nested-patch FAC and the two-part FEM problem at test
-    size alike.
-16. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+    size alike. U's coupling view runs the row-list kernel.
+16. The host C++ setup (``native.py``), which setup_backend "auto" takes:
+    the default ``BoomerAMG(max_coarse_size=1500)`` at 128^3 float32 and
+    the same with ``nongalerkin_tol``, under PCG at rtol 1e-6, and the ij
+    driver's ``-solver 1 -agg_nl 1`` at 128^3; each must print the
+    ``native`` setup path, converge under TRUE_RESIDUAL_LIMIT and launch
+    kernels 1, 3 and 4, and prints its setup seconds, levels, iterations
+    and warm ms. Then the default, ``agg_num_levels=1`` and
+    ``nongalerkin_tol`` facades at 24^3 on the card and on the CPU, in
+    float64 and float32: equal setup paths, levels, C-point counts,
+    formats and iterations. Every phase prints the setup paths its
+    BoomerAMG setups took (``setup_paths``).
+17. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -414,7 +429,7 @@ FEI_N = 384
 FEI_CUT = ("FEI on 384^2 Q1 elements (147 456 calls): one "
            "sumInElemMatrix/RHS call per element, ~24 us each on the host")
 SSTRUCT_KERNELS = ("dia_spmv", "dia_spmv_static", "dia_rows",
-                   "dia_rows_static", "banded_spmv", "banded_spmv_t")
+                   "banded_spmv", "banded_spmv_t")
 # card against CPU: tests/test_drivers.py's SSTRUCT_GOLDEN flags with
 # their golden iterations (float64); the float32 runs at SSTRUCT_F32_TOL
 SSTRUCT_GOLDEN = [
@@ -422,6 +437,18 @@ SSTRUCT_GOLDEN = [
     ("-solver 20 -n 12 -tol 1e-8", 63), ("-solver 3 -n 16 -tol 1e-7", 16),
     ("-solver 28 -n 12 -tol 1e-8", 15), ("-solver 120 -n 10 -tol 1e-8", 10)]
 SSTRUCT_F32_TOL = 1e-4
+# Phase 16: the host C++ setup that setup_backend="auto" takes (hypre's
+# own split: setup in C on the host, the hierarchy moved to the card
+# once): the default facade at N_MAIN^3, the ij driver's -agg_nl and a
+# non-Galerkin setup, then card against CPU at N_PARITY^3
+NATIVE_RTOL = 1e-6
+NONGALERKIN_TOL = 0.02
+NATIVE_IJ_FLAGS = (f"-solver 1 -n {N_MAIN} {N_MAIN} {N_MAIN} -agg_nl 1 "
+                   f"-tol {NATIVE_RTOL} -recompute 0")
+NATIVE_SMALL_CASES = [
+    ("default", {}), ("agg_num_levels=1", dict(agg_num_levels=1)),
+    ("nongalerkin_tol", dict(nongalerkin_tol=NONGALERKIN_TOL)),
+]
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -429,8 +456,6 @@ SOURCES = {
                         "hypre_tpu/seq/dia.py:446 (_dia_kernel_static)"),
     "dia_rows": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
-    "dia_rows_static": ("hypre_tpu_torch/csrc/dia_spmv.cu",
-                        "hypre_tpu/seq/dia.py:446 (_dia_kernel_static)"),
     "banded_spmv": ("hypre_tpu_torch/csrc/banded_spmv.cu",
                     "hypre_tpu/seq/fastmv.py:156 (_spmv_kernel)"),
     "banded_spmv_t": ("hypre_tpu_torch/csrc/banded_spmv.cu",
@@ -662,11 +687,11 @@ def run_bench_path(H, kernels, torch, transfer_dia: bool):
                     f"{what}: level-0 P is not banded with a schedule")
         suffix = "_static" if specialize else ""
         per_it = per_iteration_launches(H, kernels, torch, fast)
-        # 6 dense products of the level-0 A; 2 row-list transfers
+        # 6 dense products of the level-0 A; 2 row-list transfers (one
+        # row-list kernel, whichever offsets the planes carry)
         want = {"dia_spmv" + suffix: 6,
-                "dia_rows" + suffix: 2 if transfer_dia else 0}
-        for name in ("dia_spmv", "dia_spmv_static", "dia_rows",
-                     "dia_rows_static"):
+                "dia_rows": 2 if transfer_dia else 0}
+        for name in ("dia_spmv", "dia_spmv_static", "dia_rows"):
             require(per_it[name] == want.get(name, 0),
                     f"{what}: {per_it[name]} {name} launches per "
                     f"iteration, expected {want.get(name, 0)}")
@@ -944,7 +969,7 @@ def csr_of_banded(M, torch):
 def dense_only(M):
     """A DiaMatrix without its row-list layout: the dense kernels' route."""
     return dataclasses.replace(M, r_ptr=None, r_ids=None, r_vals=None,
-                               r_rows=None, r_lanes=1)
+                               r_rows=None, r_mask=None, r_lanes=1)
 
 
 def check_transfer_kernels(H, torch, T, T_static, hier_banded,
@@ -962,7 +987,7 @@ def check_transfer_kernels(H, torch, T, T_static, hier_banded,
 
     rng = np.random.default_rng(1)
     out = {"dia_spmv": [], "dia_spmv_static": [], "dia_rows": [],
-           "dia_rows_static": [], "banded_spmv": []}
+           "banded_spmv": []}
     n = T.n_rows
     for label, M in (("P_dia", T.P_dia), ("Pt_dia", T.Pt_dia)):
         D = M.D
@@ -999,8 +1024,8 @@ def check_transfer_kernels(H, torch, T, T_static, hier_banded,
             require(rel_lib <= 1e-5, f"{name} {label}: rel err {rel_lib} "
                     "against the CSR product")
             out[name].append(rec)
-        rec_rows = check_row_list(torch, dia_mod, label, M, offs_static, x,
-                                  csr, lib, lib_ms)
+        rec_rows = check_row_list(torch, dia_mod, label, M, x, csr, lib,
+                                  lib_ms, offs_static)
         for name, rec in rec_rows.items():
             out[name].append(rec)
 
@@ -1089,84 +1114,159 @@ def check_transfer_kernels(H, torch, T, T_static, hier_banded,
 
 
 def layout_bytes(M) -> int:
-    """Bytes a DiaMatrix's row-list layout holds (the listed rows too)."""
+    """Bytes a DiaMatrix's row-list layout holds (the list and its bitmask
+    too)."""
     return sum(t.numel() * t.element_size()
-               for t in (M.r_ptr, M.r_ids, M.r_vals, M.r_rows)
+               for t in (M.r_ptr, M.r_ids, M.r_vals, M.r_rows, M.r_mask)
                if t is not None)
 
 
-def check_row_list(torch, dia_mod, label, M, offs_static, x, csr, lib,
-                   lib_ms):
-    """The row-list kernels on ``M``'s compact layout: the bits of the
-    dense kernels' plain version and of their own plain version, the same
-    bits in two runs; times beside the bound of the bytes the layout must
-    move and beside the dense kernels' and the CSR call's times. The
-    layout is also built again from the planes alone, timed, and must
-    equal the one optimize_hierarchy built."""
+def row_list_columns(M, torch):
+    """The in-range columns the row-list layout of M reaches, one per
+    entry."""
+    n_list = M.r_ptr.numel() - 1
+    slots = torch.repeat_interleave(
+        torch.arange(n_list, device=M.device),
+        (M.r_ptr[1:] - M.r_ptr[:-1]).long())
+    rows = (slots if M.r_rows is None else M.r_rows.long()[slots])
+    cols = (rows + M.offsets.long()[M.r_ids.long()]
+            if M.r_ids.dtype == torch.uint8 else M.r_ids.long())
+    return cols[(cols >= 0) & (cols < M.n_cols)]
+
+
+def row_list_bounds(M, torch) -> dict:
+    """The two yardsticks of a row-list product in float32. ``bound_ms``:
+    the bytes the row-list kernel must move, its layout, x at the distinct
+    columns the layout reaches and y once. ``nnz_bound_ms``: the bytes of
+    the function alone, whatever the layout: y written, each nonzero's
+    value and int32 column read once, x at min(nnz, n_cols) columns (the
+    same yardstick for every layout of the same function)."""
+    n, nnz = M.n_rows, int(M.r_vals.numel())
+    cols = row_list_columns(M, torch)
+    x_cols = int(torch.unique(cols).numel())
+    bms, bby = bound(layout_bytes(M) + x_cols * 4 + n * 4, 2.0 * nnz,
+                     "float32")
+    nnz_bms, _ = bound(4 * (n + 2 * nnz + min(nnz, M.n_cols)), 2.0 * nnz,
+                       "float32")
+    return {"nnz": nnz, "x_cols": x_cols,
+            "x_sector_bytes": int(torch.unique(cols // 8).numel()) * 32,
+            "bound_ms": bms, "bound_by": bby, "nnz_bound_ms": nnz_bms}
+
+
+def check_row_list(torch, dia_mod, label, M, x, csr, lib, lib_ms,
+                   offs_static=None):
+    """The row-list kernel on ``M``'s compact layout: the bits of the dense
+    kernels' plain version and of its own plain version, the same bits in
+    two runs and with the static offsets; its time beside both bounds
+    (``row_list_bounds``), the dense kernels' and the CSR call's times.
+    The layout is built again from the planes alone, timed, and must
+    equal the one the path built. Then the kernel with one thread and with
+    4 lanes a listed row on the same planes, each at 0 error
+    (``variants_ms``)."""
     n, D = M.n_rows, M.D
+    fields = ("r_ptr", "r_ids", "r_vals", "r_rows", "r_mask")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     again = dia_mod.compact_dia(dense_only(M))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    require(all(torch.equal(getattr(again, f), getattr(M, f))
-                for f in ("r_ptr", "r_ids", "r_vals"))
-            and again.r_lanes == M.r_lanes,
+    require(all((getattr(again, f) is None and getattr(M, f) is None)
+                or torch.equal(getattr(again, f), getattr(M, f))
+                for f in fields) and again.r_lanes == M.r_lanes,
             f"{label}: the row-list layout differs when built again")
-    rows = (M.r_ptr, M.r_ids, M.r_vals)
-    nnz = int(M.r_vals.numel())
     dense_ref = dia_mod.dia_spmv_plain(M.dvals, M.offsets, x, M.margin)
-    # the columns the layout reaches: the function reads x there only (for
-    # P_dia, the C points to which TransferDia expands the coarse vector)
-    cols = torch.repeat_interleave(
-        torch.arange(n, device=x.device), (M.r_ptr[1:] - M.r_ptr[:-1]).long()
-    ) + M.offsets.long()[M.r_ids.long()]
-    cols = cols[(cols >= 0) & (cols < M.n_cols)]
-    x_cols = int(torch.unique(cols).numel())
-    x_sectors = int(torch.unique(cols // 8).numel())  # 32-byte sectors
-    # a value and a plane id per nonzero, the row pointer, x where the
-    # layout reaches it and y once
-    bms, bby = bound(nnz * 5 + (n + 1) * 4 + x_cols * 4 + n * 4, 2.0 * nnz,
-                     "float32")
-    out = {}
-    for name, offs in (("dia_rows", M.offsets),
-                       ("dia_rows_static", offs_static)):
-        fn = getattr(dia_mod, name)
 
-        def kern():
-            return fn(*rows, offs, x, n, M.r_rows, M.r_lanes)
+    def kern():
+        return M.mv(x)
 
-        def plain():
-            return dia_mod.dia_rows_plain(*rows, offs, x, n)
+    def plain():
+        return dia_mod.dia_rows_plain(M.r_ptr, M.r_ids, M.r_vals, M.offsets,
+                                      x, n, M.n_cols, M.r_rows)
 
-        y1, y2 = kern(), kern()
-        rel, ab = rel_err(y1, plain(), torch)
-        rel_dense, ab_dense = rel_err(y1, dense_ref, torch)
-        rel_lib, _ = rel_err(y1, lib, torch)
-        rerun, _ = rel_err(y2, y1, torch)
-        rec = {"check": name, "operator": label, "shape": [D, n],
-               "nnz": nnz, "lanes": M.r_lanes,
-               "listed_rows": None if M.r_rows is None else M.r_rows.numel(),
-               "non_empty_rows": int((M.r_ptr[1:] > M.r_ptr[:-1]).sum()),
-               "x_cols": x_cols, "x_sector_bytes": x_sectors * 32,
-               "schedule_bytes": layout_bytes(M),
-               "plane_bytes": M.dvals.numel() * M.dvals.element_size(),
-               "build_s": build_s,
-               "max_rel_err": rel, "max_abs_err": ab, "tol": 0.0,
-               "max_abs_err_vs_dense_plain": ab_dense,
-               "rel_err_vs_csr": rel_lib, "run_to_run_rel": rerun,
-               "ms": time_ms(kern, torch),
-               "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
-               "bound_ms": bms, "bound_by": bby, "library_ms": lib_ms}
+    y1, y2 = kern(), kern()
+    y_st = dia_mod.dia_rows(M.r_ptr, M.r_ids, M.r_vals,
+                            offs_static or tuple(M.offsets.cpu().tolist()),
+                            x, n, M.n_cols, M.r_rows, M.r_mask, M.r_lanes)
+    rel, ab = rel_err(y1, plain(), torch)
+    rel_dense, ab_dense = rel_err(y1, dense_ref, torch)
+    rel_lib, _ = rel_err(y1, lib, torch)
+    rerun, _ = rel_err(y2, y1, torch)
+    variants = {}
+    for lanes in dia_mod.ROW_LANES:
+        V = compact_with_lanes(dia_mod, dense_only(M), lanes)
+        require(bool(torch.equal(V.mv(x), dense_ref)),
+                f"{label}: the row list with {lanes} lanes a row differs "
+                "from the dense plain version")
+        variants[f"lanes_{lanes}"] = time_ms(lambda V=V: V.mv(x), torch)
+    rec = {"check": "dia_rows", "operator": label, "shape": [D, n],
+           "lanes": M.r_lanes,
+           "listed_rows": None if M.r_rows is None else M.r_rows.numel(),
+           "non_empty_rows": int((M.dvals != 0).any(0).sum()),
+           "schedule_bytes": layout_bytes(M),
+           "plane_bytes": M.dvals.numel() * M.dvals.element_size(),
+           "build_s": build_s,
+           "max_rel_err": rel, "max_abs_err": ab, "tol": 0.0,
+           "max_abs_err_vs_dense_plain": ab_dense,
+           "rel_err_vs_csr": rel_lib, "run_to_run_rel": rerun,
+           "ms": time_ms(kern, torch),
+           "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+           **row_list_bounds(M, torch), "library_ms": lib_ms,
+           "variants_ms": variants}
+    log(json.dumps(rec))
+    require(ab == 0.0 and ab_dense == 0.0,
+            f"dia_rows {label}: differs from the plain versions by {ab} "
+            f"(row list) and {ab_dense} (dense planes)")
+    require(rel_lib <= 1e-5, f"dia_rows {label}: rel err {rel_lib} "
+            "against the CSR product")
+    require(rerun == 0.0 and bool(torch.equal(y1, y2))
+            and bool(torch.equal(y_st, y1)),
+            f"dia_rows {label}: two runs, or the static offsets, differ")
+    return {"dia_rows": rec}
+
+
+def compact_with_lanes(dia_mod, M, lanes: int):
+    """``compact_dia(M)`` with ``lanes`` lanes a listed row whatever the
+    rows' mean length, and whatever the layout's share of the planes."""
+    saved = dia_mod.ROWS_PER_LANE, dia_mod.ROWS_MAX_SHARE
+    dia_mod.ROWS_PER_LANE = float("inf") if lanes == 1 else 0
+    dia_mod.ROWS_MAX_SHARE = float("inf")
+    try:
+        return dia_mod.compact_dia(M)
+    finally:
+        dia_mod.ROWS_PER_LANE, dia_mod.ROWS_MAX_SHARE = saved
+
+
+def row_lanes_sweep(torch, dia_mod) -> list:
+    """Where 4 lanes a listed row start to beat one thread a row: D = 64
+    planes over N_MAIN^3 rows holding ~3.1 M nonzeros (the bench P's
+    count) in listed rows of ``m`` entries each, for m from 1 to 32, timed
+    with each lane count (float32); the two must give the same bits."""
+    n, D, nnz = N_MAIN ** 3, 64, 3 << 20
+    out = []
+    for m in (1, 2, 4, 8, 12, 16, 32):
+        g = torch.Generator(device="cuda").manual_seed(m)
+        n_list = min(nnz // m, n)
+        rows = torch.randperm(n, generator=g, device="cuda")[:n_list]
+        planes = torch.rand(n_list, D, generator=g, device="cuda") \
+            .argsort(1)[:, :m]
+        dv = torch.zeros(D, n, device="cuda")
+        dv[planes.reshape(-1), rows.repeat_interleave(m)] = \
+            torch.rand(n_list * m, generator=g, device="cuda") + 0.5
+        M = dia_mod.DiaMatrix(dvals=dv, offsets=tuple(range(-32, 32)),
+                              n_cols=n)
+        x = torch.rand(n, generator=g, device="cuda")
+        rec = {"row_lanes_sweep": m, "listed_rows": n_list,
+               "nnz": n_list * m}
+        ys = []
+        for lanes in dia_mod.ROW_LANES:
+            C = compact_with_lanes(dia_mod, M, lanes)
+            ys.append(C.mv(x))
+            rec[f"lanes_{lanes}_ms"] = time_ms(lambda C=C: C.mv(x), torch)
         log(json.dumps(rec))
-        require(ab == 0.0 and ab_dense == 0.0,
-                f"{name} {label}: differs from the plain versions by {ab} "
-                f"(row list) and {ab_dense} (dense planes)")
-        require(rel_lib <= 1e-5, f"{name} {label}: rel err {rel_lib} "
-                "against the CSR product")
-        require(rerun == 0.0 and bool(torch.equal(y1, y2)),
-                f"{name} {label}: two runs differ ({rerun})")
-        out[name] = rec
+        require(bool(torch.equal(ys[0], ys[1])),
+                f"row-list lanes sweep m={m}: the lane counts differ")
+        out.append(rec)
+        del dv, M, C
     return out
 
 
@@ -1210,7 +1310,7 @@ def run_facade_path(H, kernels, torch):
     b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
     records = []
     for label, knobs, names in (
-            ("pure", dict(max_coarse_size=1500), None),
+            ("default", dict(max_coarse_size=1500), None),
             ("device", dict(setup_backend="device", agg_num_levels=1,
                             max_coarse_size=1500), ("gmres",))):
         torch.cuda.synchronize()
@@ -1220,6 +1320,7 @@ def run_facade_path(H, kernels, torch):
         setup_s = time.perf_counter() - t0
         hier = amg.hierarchy
         log(json.dumps({"facade": label, "knobs": knobs, "setup_s": setup_s,
+                        "setup_path": amg.setup_path,
                         "levels": level_sizes(hier),
                         "formats": describe_formats(hier)}))
         log(amg.stats())
@@ -1280,7 +1381,7 @@ def option_run(H, torch, device, knobs, solve):
         x, info = getattr(H, solve)(hier.levels[0].A.mv, b, M=amg.precond(),
                                     rtol=FACADE_RTOL, maxiter=200,
                                     device=device)
-    return {"levels": level_sizes(hier),
+    return {"setup_path": amg.setup_path, "levels": level_sizes(hier),
             "c_points": [int((lv.cf == 1).sum()) for lv in hier.levels],
             "formats": describe_formats(hier), "banded": has_banded(hier),
             "iterations": int(info.iterations),
@@ -1328,7 +1429,8 @@ def facade_options_card_vs_cpu(H, kernels, torch):
         require(out["cuda"]["converged"] and out["cpu"]["converged"],
                 f"{tag}: a solve did not converge")
         require(out["cuda"]["banded"], f"{tag}: no banded operator")
-        for key in ("levels", "c_points", "formats", "iterations"):
+        for key in ("setup_path", "levels", "c_points", "formats",
+                    "iterations"):
             require(out["cuda"][key] == out["cpu"][key],
                     f"{tag}: {key} differ between card and CPU")
     cg, eig = {}, {}
@@ -1440,8 +1542,8 @@ def device_setup_card_vs_cpu(H, kernels, torch):
         if tdia:
             require(out["cuda"]["formats"][0][1] == "TransferDia",
                     f"{tag}: level-0 P is not a TransferDia")
-            require(out["cuda"]["launches"]["dia_rows_static"] > 0,
-                    f"{tag}: the card run never launched dia_rows_static")
+            require(out["cuda"]["launches"]["dia_rows"] > 0,
+                    f"{tag}: the card run never launched dia_rows")
 
 
 def device_setup_twice(H, torch):
@@ -1515,7 +1617,7 @@ def hold_dia(M, label, kernels, torch, held):
     restored, so the comparison does not count as a launch of the path."""
     from hypre_tpu_torch.seq import dia as dia_mod
 
-    if not isinstance(M, dia_mod.DiaMatrix) or M.r_ptr is not None:
+    if not isinstance(M, dia_mod.DiaMatrix):
         return
     saved = dict(kernels.LAUNCHES)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
@@ -1524,8 +1626,9 @@ def hold_dia(M, label, kernels, torch, held):
     kernels.LAUNCHES.update(saved)
     want = dia_mod.dia_spmv_plain(M.dvals, M.offsets, x, M.margin)
     ab = float((got - want).abs().max())
-    held.append({"kernel": "dia_spmv" if M.offsets_static is None
-                 else "dia_spmv_static", "operator": label,
+    kernel = ("dia_rows" if M.r_ptr is not None else "dia_spmv"
+              if M.offsets_static is None else "dia_spmv_static")
+    held.append({"kernel": kernel, "operator": label,
                  "shape": [M.D, M.n_rows], "max_abs_err": ab})
     require(ab == 0.0, f"{label}: the DIA kernel differs from its plain "
             f"version by {ab}")
@@ -1585,6 +1688,7 @@ def facade_setup(H, torch, A, what, **knobs):
     amg = H.BoomerAMG(max_coarse_size=1500, **knobs).setup(A)
     torch.cuda.synchronize()
     log(json.dumps({"setup": what, "setup_s": time.perf_counter() - t0,
+                    "setup_path": amg.setup_path,
                     "levels": level_sizes(amg.hierarchy),
                     "formats": describe_formats(amg.hierarchy)}))
     return amg
@@ -2719,7 +2823,7 @@ def hold_views(label, ops, kernels, torch, held):
     got = []
     for name, M in ops:
         hold_dia(M, f"{label} {name}", kernels, torch, got)
-    for kernel in STRUCT_KERNELS:
+    for kernel in ("dia_spmv", "dia_spmv_static", "dia_rows"):
         mine = [h for h in got if h["kernel"] == kernel]
         if mine:
             held.append({
@@ -3287,7 +3391,8 @@ def sstruct_kernel_rows(torch, ops) -> dict:
     kernels line's other_shapes. A DIA view's ``bound_ms`` counts the
     bytes of its layout; ``nnz_bound_ms`` those of the function alone: y
     written, each nonzero's value and int32 column read once, and x at
-    the columns they reach (U's planes are mostly zero fill)."""
+    the columns they reach. U's view runs the row-list kernel
+    (``check_row_list``)."""
     from hypre_tpu_torch.seq import dia as dia_mod
     from hypre_tpu_torch.seq import fastmv
 
@@ -3296,28 +3401,26 @@ def sstruct_kernel_rows(torch, ops) -> dict:
     for label, M in ops.items():
         x = torch.from_numpy(rng.standard_normal(M.n_cols)).to(
             "cuda", torch.float32)
+        if isinstance(M, dia_mod.DiaMatrix) and M.r_ptr is not None:
+            # the row-list kernel (U's coupling view), with both bounds
+            csr = csr_of_dia(M, torch)
+            lib = (csr @ x[:, None])[:, 0]
+            lib_ms = time_ms(lambda: csr @ x[:, None], torch)
+            rec = check_row_list(torch, dia_mod, f"sstruct {label}", M, x,
+                                 csr, lib, lib_ms)["dia_rows"]
+            rows.setdefault("dia_rows", []).append(rec)
+            continue
         if isinstance(M, dia_mod.DiaMatrix):
             D, n = M.D, M.n_rows
             csr = csr_of_dia(M, torch)
-            if M.r_ptr is not None:
-                name = ("dia_rows_static" if M.offsets_static is not None
-                        else "dia_rows")
-                nnz = int(M.r_ptr[-1])
-                nbytes = dia_mod.row_list_bytes(nnz, n, 4) + 2 * n * 4
-                flops = 2.0 * nnz
+            name = ("dia_spmv_static" if M.offsets_static is not None
+                    else "dia_spmv")
+            nbytes = D * n * 4 + 2 * n * 4 + D * 4
+            flops = 2.0 * D * n
 
-                def plain(M=M, x=x):
-                    return dia_mod.dia_rows_plain(
-                        M.r_ptr, M.r_ids, M.r_vals, M.offsets, x, M.n_cols)
-            else:
-                name = ("dia_spmv_static" if M.offsets_static is not None
-                        else "dia_spmv")
-                nbytes = D * n * 4 + 2 * n * 4 + D * 4
-                flops = 2.0 * D * n
-
-                def plain(M=M, x=x):
-                    return dia_mod.dia_spmv_plain(M.dvals, M.offsets, x,
-                                                  M.margin)
+            def plain(M=M, x=x):
+                return dia_mod.dia_spmv_plain(M.dvals, M.offsets, x,
+                                              M.margin)
             kern = (lambda M=M, x=x: M.mv(x))
             shape = [D, n]
             nz = int((M.dvals != 0).sum())
@@ -3504,6 +3607,128 @@ def sstruct_card_vs_cpu(torch):
                     f"golden {golden[flags]}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the host C++ setup
+# ---------------------------------------------------------------------------
+
+
+def count_setup_paths(H):
+    """Count, from here on, the setup path each BoomerAMG setup takes
+    ('native', 'jax' or 'device'): the phases print and clear the counts,
+    so that every phase shows which of its setups moved to the host C++
+    setup."""
+    import collections
+
+    counts = collections.Counter()
+    do_setup = H.BoomerAMG._do_setup
+
+    def counted(self, A, where):
+        do_setup(self, A, where)
+        counts[self.setup_path] += 1
+
+    H.BoomerAMG._do_setup = counted
+    return counts
+
+
+def native_phase(H, kernels, torch, held):
+    """Phase 16: the default facade (setup_backend "auto", which takes the
+    host C++ setup) at N_MAIN^3 float32 under PCG, the same with
+    nongalerkin_tol, and the ij driver's -agg_nl: each prints its setup
+    path (which must be 'native'), setup seconds, levels, iterations, warm
+    ms and f64 true residual, must converge under TRUE_RESIDUAL_LIMIT and
+    launch kernels 1, 3 and 4."""
+    from hypre_tpu_torch.drivers import ij
+
+    kernels.reset_launches()
+    n = N_MAIN
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float32, device="cuda")
+    A64 = H.laplacian_3d_7pt(n, n, n, dtype=torch.float64, device="cuda")
+    b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    need = ("dia_spmv", "banded_spmv", "banded_spmv_t")
+    for label, knobs in (("default", {}),
+                         ("nongalerkin", dict(
+                             nongalerkin_tol=NONGALERKIN_TOL))):
+        t0 = time.perf_counter()
+        amg, setup_s = synced(torch, lambda: H.BoomerAMG(
+            max_coarse_size=1500, **knobs).setup(A))
+        require(amg.setup_path == "native",
+                f"facade {label} took the {amg.setup_path!r} setup")
+        log(amg.stats())
+        op = amg.hierarchy.levels[0].A
+        for name, M in facade_ops(f"native {label}", amg):
+            hold_dia(M, name, kernels, torch, held)
+        (x, info), warm_ms, grew = timed(
+            kernels, torch, lambda: H.pcg(op.mv, b, M=amg.precond(),
+                                          rtol=NATIVE_RTOL, maxiter=100,
+                                          device="cuda"))
+        check_solve(f"native facade {label} pcg {n}^3", torch, x, info, A64,
+                    b, warm_ms, grew, need=need, extra={
+                        "setup_path": amg.setup_path, "knobs": knobs,
+                        "setup_s": setup_s,
+                        "levels": level_sizes(amg.hierarchy),
+                        "formats": describe_formats(amg.hierarchy)})
+        del amg, op, x
+        torch.cuda.empty_cache()
+        log(json.dumps({"phase": "native_phase", "part": label,
+                        "seconds": time.perf_counter() - t0}))
+    del A, A64, b
+    t0 = time.perf_counter()
+    case, setup_s = synced(torch, lambda: ij.prepare(
+        NATIVE_IJ_FLAGS.split(), device="cuda", dtype=torch.float32))
+    paths = [amg.setup_path for amg in case.amgs]
+    require(paths == ["native"], f"ij -agg_nl took the {paths} setups")
+    hier = case.amgs[0].hierarchy
+    (x, info), warm_ms, grew = timed(kernels, torch, case.solve)
+    check_solve(f"ij {NATIVE_IJ_FLAGS}", torch, x, info, f64_of(case.A),
+                case.b,
+                warm_ms, grew, need=need, extra={
+                    "setup_path": paths[0], "setup_s": setup_s,
+                    "levels": level_sizes(hier),
+                    "formats": describe_formats(hier)})
+    log(json.dumps({"phase": "native_phase", "part": "ij -agg_nl",
+                    "seconds": time.perf_counter() - t0}))
+    return dict(kernels.LAUNCHES)
+
+
+def native_card_vs_cpu(H, kernels, torch):
+    """The host C++ setup through the facade at N_PARITY^3, on the card and
+    on the CPU (both optimized, so the CPU runs the card's formats by
+    their plain versions): the same setup path, levels, C-point counts,
+    formats and PCG iterations, in float64 at rtol 1e-8 and in float32 at
+    NATIVE_RTOL."""
+    n = N_PARITY
+    for label, knobs in NATIVE_SMALL_CASES:
+        for dtype, rtol in ((torch.float64, 1e-8),
+                            (torch.float32, NATIVE_RTOL)):
+            out = {}
+            for device in ("cuda", "cpu"):
+                A = H.laplacian_3d_7pt(n, n, n, dtype=dtype, device=device)
+                amg = H.BoomerAMG(max_coarse_size=100, **knobs).setup(
+                    A, optimize=True, device=device)
+                hier = amg.hierarchy
+                b = torch.ones(A.n_rows, dtype=dtype, device=device)
+                _, info = H.pcg(hier.levels[0].A.mv, b, M=amg.precond(),
+                                rtol=rtol, maxiter=100, device=device)
+                out[device] = {
+                    "setup_path": amg.setup_path,
+                    "levels": level_sizes(hier),
+                    "c_points": [int((lv.cf == 1).sum())
+                                 for lv in hier.levels],
+                    "formats": describe_formats(hier),
+                    "iterations": int(info.iterations),
+                    "converged": bool(info.converged)}
+            tag = f"native {label} {n}^3 {str(dtype).split('.')[1]}"
+            log(json.dumps({"card_vs_cpu": tag, **out}))
+            require(out["cuda"]["converged"] and out["cpu"]["converged"],
+                    f"{tag}: a solve did not converge")
+            path = out["cuda"]["setup_path"]
+            require(path == "native", f"{tag}: took the {path!r} setup")
+            for key in ("setup_path", "levels", "c_points", "formats",
+                        "iterations"):
+                require(out["cuda"][key] == out["cpu"][key],
+                        f"{tag}: {key} differ between card and CPU")
+
+
 def main() -> int:
     import torch
 
@@ -3522,11 +3747,20 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t0 = t_run = time.perf_counter()
     kernels.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for stem, out in kernels.BUILD_LOG.items():
         log(f"--- nvcc {stem}.cu ---\n{out.strip()}")
+
+    paths = count_setup_paths(H)
+
+    def phase_done(name, t0, **more):
+        """The phase's seconds and the setup paths its BoomerAMG setups
+        took (counts cleared for the next phase)."""
+        log(json.dumps({"phase": name, "seconds": time.perf_counter() - t0,
+                        "setup_paths": dict(paths), **more}))
+        paths.clear()
 
     hier, fast, l_dyn, it_dyn = run_main_path(H, kernels, torch, False)
     _, _, l_st, it_st = run_main_path(H, kernels, torch, True, hier=hier)
@@ -3546,50 +3780,55 @@ def main() -> int:
             and hier_td.n_level_true == hier_bp.n_level_true,
             "the two device setups built different levels")
 
+    t0 = time.perf_counter()
     results = check_kernels(H, torch, hier, fast)
     at_new_shapes, _ = check_transfer_kernels(
         H, torch, fast_td[False].levels[0].P, fast_td[True].levels[0].P,
         hier_bp, fast_bp[False])
     for rec in results.pop("d27"):
         at_new_shapes[rec["check"]].append(rec)
+    from hypre_tpu_torch.seq import dia as dia_mod
+
+    row_lanes_sweep(torch, dia_mod)
     del hier, fast, hier_td, fast_td, hier_bp, fast_bp
     torch.cuda.empty_cache()
+    phase_done("kernels", t0)
+    t0 = time.perf_counter()
     l_facade, _ = run_facade_path(H, kernels, torch)
+    phase_done("facade_path", t0)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     card_vs_cpu(H, kernels, torch)
     device_setup_card_vs_cpu(H, kernels, torch)
     device_setup_twice(H, torch)
+    phase_done("card_vs_cpu", t0)
+    t0 = time.perf_counter()
     facade_options_card_vs_cpu(H, kernels, torch)
+    phase_done("facade_options_card_vs_cpu", t0)
     held = []  # the new phases' DIA operators, each held against plain
     new_phases = []
     for phase in (other_problems_phase, ij_phase, reduction_phase):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         new_phases.append(phase(H, kernels, torch, held))
-        log(json.dumps({"phase": phase.__name__,
-                        "seconds": time.perf_counter() - t0}))
+        phase_done(phase.__name__, t0)
     t0 = time.perf_counter()
     small_card_vs_cpu(H, kernels, torch)
-    log(json.dumps({"phase": "small_card_vs_cpu",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("small_card_vs_cpu", t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     new_phases.append(aux_phase(H, kernels, torch, held))
-    log(json.dumps({"phase": "aux_phase",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("aux_phase", t0)
     t0 = time.perf_counter()
     aux_card_vs_cpu(H, kernels, torch)
-    log(json.dumps({"phase": "aux_card_vs_cpu",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("aux_card_vs_cpu", t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     new_phases.append(precond_phase(H, kernels, torch, held))
-    log(json.dumps({"phase": "precond_phase",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("precond_phase", t0)
     t0 = time.perf_counter()
     precond_card_vs_cpu(H, kernels, torch)
-    log(json.dumps({"phase": "precond_card_vs_cpu",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("precond_card_vs_cpu", t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     l_struct, struct_ops = struct_phase(H, kernels, torch, held)
@@ -3597,12 +3836,10 @@ def main() -> int:
     for name, recs in struct_kernel_rows(torch, struct_ops).items():
         at_new_shapes[name].extend(recs)
     del struct_ops
-    log(json.dumps({"phase": "struct_phase",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("struct_phase", t0)
     t0 = time.perf_counter()
     struct_card_vs_cpu(torch)
-    log(json.dumps({"phase": "struct_card_vs_cpu",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("struct_card_vs_cpu", t0)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     l_sstruct, sstruct_ops = sstruct_phase(H, kernels, torch, held)
@@ -3610,15 +3847,23 @@ def main() -> int:
     for name, recs in sstruct_kernel_rows(torch, sstruct_ops).items():
         at_new_shapes.setdefault(name, []).extend(recs)
     del sstruct_ops
-    log(json.dumps({"phase": "sstruct_phase",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("sstruct_phase", t0)
     t0 = time.perf_counter()
     sstruct_card_vs_cpu(torch)
-    log(json.dumps({"phase": "sstruct_card_vs_cpu",
-                    "seconds": time.perf_counter() - t0}))
+    phase_done("sstruct_card_vs_cpu", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_phases.append(native_phase(H, kernels, torch, held))
+    phase_done("native_phase", t0)
+    t0 = time.perf_counter()
+    native_card_vs_cpu(H, kernels, torch)
+    phase_done("native_card_vs_cpu", t0)
+    log(json.dumps({"run_seconds": time.perf_counter() - t_run}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    # the row-list shapes' second yardstick and variant times
+    extra_keys = ("operator", "nnz_bound_ms", "variants_ms")
     path_launches = [l_dyn, l_st, l_td[False], l_td[True], l_bp[False],
                      l_bp[True], l_facade] + new_phases
     line = []
@@ -3630,14 +3875,15 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces,
                  "launches": sum(l[name] for l in path_launches)}
-        entry.update({k: rc[k] for k in keys})
+        entry.update({k: rc[k] for k in keys + extra_keys if k in rc})
         # the worst error over every shape checked, beside the first
         # shape's times; the other shapes follow
         entry["max_abs_err"] = max([rc["max_abs_err"]]
                                    + [m["max_abs_err"] for m in more])
         entry["other_shapes"] = [
             dict({"operator": m["operator"], "shape": m["shape"]},
-                 **{k: m[k] for k in keys}) for m in more]
+                 **{k: m[k] for k in keys + extra_keys if k in m})
+            for m in more]
         # the operators of phases 8-10, one launch each against plain
         checked = [h for h in held if h["kernel"] == name]
         if checked:

@@ -11,10 +11,11 @@ have an implementation (``par_amg.h:19-120``):
 
 ``precond()`` returns one cycle from a zero initial guess, the (precond,
 precond_setup) pair hypre plugs into its Krylov vtables collapsed into a
-closure. ``setup`` runs on the card unless the caller names the CPU, and
-on the card it swaps the level operators for the kernel formats
-(``optimize_hierarchy``), so that the solve runs the DIA and banded
-kernels.
+closure. ``setup`` runs on the card unless the caller names the CPU (the
+default knobs take the host C++ setup, as the reference's do, and move
+each level to the card once), and on the card it swaps the level
+operators for the kernel formats (``optimize_hierarchy``), so that the
+solve runs the DIA and banded kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ import torch
 
 from hypre_tpu_torch.amg.hierarchy import (
     AMGHierarchy, amg_additive_cycle, amg_cycle, amg_cycle_t, make_smoother,
-    optimize_hierarchy, setup_hierarchy, with_operator_transposes,
+    optimize_hierarchy, resolve_setup_backend, setup_hierarchy,
+    with_operator_transposes,
 )
 from hypre_tpu_torch.amg.relax import max_eig_estimate_cg
 from hypre_tpu_torch.core.config import (
@@ -64,13 +66,16 @@ class BoomerAMG:
     # SetMultAdditive / SetSimple)
     additive: int = -1
     additive_variant: str = "additive"
-    # 'auto' and 'jax' run the pure setup, 'device' the on-device setup;
-    # 'native' is ROADMAP.md Queue 1 item 15
+    # 'native' the host C++ setup, 'jax' the pure setup on the device,
+    # 'device' the on-device slab setup; 'auto' takes 'native' when the
+    # knobs are covered and its library builds, else 'jax', as the
+    # reference does (hierarchy.resolve_setup_backend)
     setup_backend: str = "auto"
-    # aggressive coarsening on the first N levels (setup_backend='device')
+    # aggressive coarsening on the first N levels ('native' or 'device')
     agg_num_levels: int = 0
     # 'transpose' (Galerkin R = P^T) | 'air' (pair with GMRES)
     restrict_type: str = "transpose"
+    # non-Galerkin sparsification of the coarse operators ('native')
     nongalerkin_tol: float = 0.0
     # kept for parity: the port's banded gather is always exact float32
     gather_precision: int = 0
@@ -109,6 +114,9 @@ class BoomerAMG:
     # knob, or 1.0 when relax_weight < 0 asked for CG weights (the knob
     # itself stays, so that every setup builds them again)
     _weight: float = dataclasses.field(default=1.0, init=False, repr=False)
+    # the setup path the last setup took: 'native', 'jax' or 'device'
+    # ('' for a subclass with a setup of its own)
+    setup_path: str = dataclasses.field(default="", init=False, repr=False)
 
     def setup(self, A: EllMatrix, host_setup="auto", optimize="auto",
               device=None) -> "BoomerAMG":
@@ -118,6 +126,8 @@ class BoomerAMG:
         host_setup: True sets up on the CPU and moves the finished
         hierarchy to the device (the reference's execution-policy split,
         HYPRE_SetExecutionPolicy); 'auto' and False set up on the device.
+        The native setup is host code whichever is named: it builds each
+        level's tensors on the device once.
         optimize: swap the level operators for the kernel formats (DIA,
         banded); 'auto' = when the device is CUDA."""
         target = resolve_device(device)
@@ -197,6 +207,12 @@ class BoomerAMG:
         (smoothed aggregation, GSMG) override this hook; ``setup`` then
         optimizes, moves, weights and binds a smoother to whatever it
         built."""
+        self.setup_path = resolve_setup_backend(
+            self.setup_backend, interp=self.interp, coarsen=self.coarsen_type,
+            interp_jacobi_passes=self.interp_jacobi_passes,
+            restrict_type=self.restrict_type,
+            agg_num_levels=self.agg_num_levels,
+            nongalerkin_tol=self.nongalerkin_tol)
         self.hierarchy = setup_hierarchy(
             A,
             strength_threshold=self.strength_threshold,
@@ -209,7 +225,7 @@ class BoomerAMG:
             relax=self.relax,
             coarsen=self.coarsen_type,
             interp_jacobi_passes=self.interp_jacobi_passes,
-            setup_backend=self.setup_backend,
+            setup_backend=self.setup_path,
             agg_num_levels=self.agg_num_levels,
             restrict_type=self.restrict_type,
             nongalerkin_tol=self.nongalerkin_tol,

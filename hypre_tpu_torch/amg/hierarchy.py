@@ -8,7 +8,12 @@ Counterpart of ``hypre_tpu/amg/hierarchy.py`` (hypre_BoomerAMGSetup,
 with truncation, and a Galerkin RAP through the sort-based SpGEMM — or
 R A P with an AIR restriction — as tensor operations on the hierarchy's
 device, driven by a host loop that reads back only sizes (the RS family
-runs its greedy pass on the host). ``setup_backend="device"`` dispatches
+runs its greedy pass on the host). ``setup_backend="native"`` runs the
+level loop on host CSR arrays through the C++ kernels of ``native.py``
+(hypre's own split: setup in C on the host), with aggressive and
+non-Galerkin coarsening, and builds each level's tensors on the device
+once; ``"auto"`` takes it whenever the knobs are covered and the library
+builds, as the reference does. ``setup_backend="device"`` dispatches
 to the slab-formulated on-device setup of ``amg/device_setup.py``, which
 also has aggressive coarsening. ``optimize_hierarchy`` then swaps each
 level operator for its kernel format (DIA on stencil levels, the banded
@@ -22,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from hypre_tpu_torch.amg.coarsen import (
@@ -37,9 +43,10 @@ from hypre_tpu_torch.amg.relax import (
     sym_two_stage_gs, two_stage_gs,
 )
 from hypre_tpu_torch.amg.strength import strength_mask
-from hypre_tpu_torch.core.config import resolve_device, tensors_to
+from hypre_tpu_torch import native
+from hypre_tpu_torch.core.config import PAD_COL, resolve_device, tensors_to
 from hypre_tpu_torch.seq.dia import DiaMatrix, compact_dia
-from hypre_tpu_torch.seq.ell import EllMatrix
+from hypre_tpu_torch.seq.ell import EllMatrix, _np_dtype
 from hypre_tpu_torch.seq.fastmv import BandedEll, banded_spmv_t, \
     optimize_operator, with_transpose_schedule
 from hypre_tpu_torch.seq.spgemm import ell_spgemm, ell_transpose
@@ -179,6 +186,50 @@ def _interpolate(interp: str, A, S, cf, cmap, n_coarse: int,
     raise ValueError(f"unknown interp type: {interp!r}")
 
 
+NATIVE_COARSENINGS = ("pmis", "ruge", "hmis", "falgout")
+NATIVE_INTERPS = ("ext+i", "direct")
+
+
+def resolve_setup_backend(setup_backend: str, interp: str = "ext+i",
+                          coarsen: str = "pmis",
+                          interp_jacobi_passes: int = 0,
+                          restrict_type: str = "transpose",
+                          agg_num_levels: int = 0,
+                          nongalerkin_tol: float = 0.0) -> str:
+    """The setup path ``setup_hierarchy`` takes for these knobs: 'auto'
+    becomes 'native' when the host C++ setup covers them (PMIS or the RS
+    family, ext+i or direct, no Jacobi-improved interpolation, Galerkin
+    restriction) and its library builds, else 'jax', as the reference's
+    rule does (``hypre_tpu/amg/hierarchy.py:191-206``); aggressive and
+    non-Galerkin coarsening outside that raise. An explicit 'native' whose
+    knobs it does not cover raises (the reference would substitute ext+i
+    and RS silently), and so does one whose library does not build."""
+    if setup_backend not in ("auto", "jax", "native", "device"):
+        raise ValueError(f"unknown setup backend: {setup_backend!r}")
+    if setup_backend not in ("auto", "native"):
+        return setup_backend
+    covered = (interp in NATIVE_INTERPS and coarsen in NATIVE_COARSENINGS
+               and interp_jacobi_passes == 0 and restrict_type == "transpose")
+    if setup_backend == "native":
+        if not covered:
+            raise ValueError(
+                "the native setup covers coarsen in "
+                f"{NATIVE_COARSENINGS}, interp in {NATIVE_INTERPS}, no "
+                "interp_jacobi_passes and restrict_type='transpose' (got "
+                f"coarsen={coarsen!r}, interp={interp!r}, "
+                f"interp_jacobi_passes={interp_jacobi_passes}, "
+                f"restrict_type={restrict_type!r})")
+        native.build()  # raises with g++'s output
+        return "native"
+    covered = covered and native.available()
+    if nongalerkin_tol > 0 and not covered:
+        raise ValueError("nongalerkin_tol requires the native setup path")
+    if agg_num_levels > 0 and not covered:
+        raise ValueError(
+            "aggressive coarsening requires the native setup backend")
+    return "native" if covered else "jax"
+
+
 def setup_hierarchy(
     A: EllMatrix,
     strength_threshold: float = 0.25,
@@ -208,11 +259,14 @@ def setup_hierarchy(
     (approximate ideal restriction; the hierarchy is then non-Galerkin
     and each level's Pt holds R).
 
-    setup_backend: 'jax' (the reference's name for this pure path) and
-    'auto' run it; 'device' runs ``device_setup.setup_hierarchy_device``
-    (PMIS + ext+i, with ``agg_num_levels``). The host C++ setup
-    ('native'), and ``agg_num_levels``/``nongalerkin_tol`` on the pure
-    path, are ROADMAP.md Queue 1 item 15 and raise.
+    setup_backend: 'native' runs the level loop on host CSR arrays through
+    the C++ kernels of ``native.py`` (PMIS or RS/HMIS/Falgout, ext+i or
+    direct, with ``agg_num_levels`` and ``nongalerkin_tol``); 'jax' (the
+    reference's name for the pure path) runs the tensor operations on
+    ``device``; 'auto' takes 'native' whenever the knobs are covered and
+    the library builds, else 'jax' (``resolve_setup_backend``); 'device'
+    runs ``device_setup.setup_hierarchy_device`` (PMIS + ext+i, with
+    ``agg_num_levels``).
     """
     if setup_backend == "device":
         from hypre_tpu_torch.amg.device_setup import setup_hierarchy_device
@@ -233,17 +287,25 @@ def setup_hierarchy(
             trunc_factor=trunc_factor, relax=relax,
             coarsen_rtol=coarsen_rtol, agg_num_levels=agg_num_levels,
             device=device)
+    setup_backend = resolve_setup_backend(
+        setup_backend, interp=interp, coarsen=coarsen,
+        interp_jacobi_passes=interp_jacobi_passes,
+        restrict_type=restrict_type, agg_num_levels=agg_num_levels,
+        nongalerkin_tol=nongalerkin_tol)
     if setup_backend == "native":
-        raise NotImplementedError(
-            "setup_backend='native' is not ported yet (ROADMAP.md Queue 1 "
-            "item 15); use setup_backend='jax' or 'device'")
-    if setup_backend not in ("jax", "auto"):
-        raise ValueError(f"unknown setup backend: {setup_backend!r}")
+        return _setup_hierarchy_native(
+            A, strength_threshold=strength_threshold,
+            max_row_sum=max_row_sum, max_levels=max_levels,
+            max_coarse_size=max_coarse_size, p_max_elmts=p_max_elmts,
+            trunc_factor=trunc_factor, relax=relax, coarsen=coarsen,
+            coarsen_rtol=coarsen_rtol, interp=interp,
+            agg_num_levels=agg_num_levels, nongalerkin_tol=nongalerkin_tol,
+            device=resolve_device(device))
     if agg_num_levels or nongalerkin_tol:
         raise NotImplementedError(
-            "aggressive and non-Galerkin coarsening need the host C++ setup "
-            "(ROADMAP.md Queue 1 item 15) on the pure path; "
-            "setup_backend='device' has agg_num_levels")
+            "aggressive and non-Galerkin coarsening run on the native setup "
+            "(setup_backend='native' or 'auto'); setup_backend='device' has "
+            "agg_num_levels")
     if coarsen not in COARSENINGS:
         raise ValueError(f"unknown coarsen type: {coarsen!r}")
     if restrict_type not in ("transpose", "air"):
@@ -625,3 +687,202 @@ def optimize_hierarchy(
         levels=new_levels, coarse_inv=hier.coarse_inv, galerkin=hier.galerkin,
         n_fine=hier.n_fine, n_level_true=hier.n_level_true,
     )
+
+
+# ---------------------------------------------------------------------------
+# The host C++ setup (csrc/hypre_tpu_native.cpp through native.py)
+# ---------------------------------------------------------------------------
+
+
+def _ell_to_csr_arrays(A: EllMatrix):
+    """Host CSR arrays (int32, int32, float64) of an ELL matrix, columns in
+    slot order (the C++ kernels take any order within a row)."""
+    cols = A.cols.cpu().numpy()
+    vals = A.vals.cpu().numpy().astype(np.float64)
+    valid = cols >= 0
+    Ap = np.zeros(cols.shape[0] + 1, np.int32)
+    np.cumsum(valid.sum(axis=1), out=Ap[1:])
+    return (cols.shape[0], Ap, cols[valid].astype(np.int32),
+            np.ascontiguousarray(vals[valid]))
+
+
+def _csr_to_ell(n, m, Ap, Aj, Ax, dtype, device) -> EllMatrix:
+    """An (n, m) ELL matrix on ``device`` from host CSR arrays, as wide as
+    the longest row."""
+    counts = np.diff(Ap)
+    k = max(int(counts.max(initial=0)), 1)
+    vals = np.zeros((n, k), _np_dtype(dtype))
+    cols = np.full((n, k), PAD_COL, np.int32)
+    rows = np.repeat(np.arange(n), counts)
+    within = np.arange(len(Aj)) - np.repeat(Ap[:-1], counts)
+    vals[rows, within] = Ax
+    cols[rows, within] = Aj
+    return EllMatrix(vals=torch.from_numpy(vals).to(device),
+                     cols=torch.from_numpy(cols).to(device), n_cols=m)
+
+
+def _hash01_vec(n: int) -> np.ndarray:
+    """The reference's numpy hash_rand01 in float64: the power method's
+    start vector."""
+    x = np.arange(n, dtype=np.uint32)
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
+    x = x ^ (x >> np.uint32(16))
+    return x.astype(np.float64) / 4294967296.0
+
+
+def _setup_hierarchy_native(
+    A: EllMatrix,
+    strength_threshold: float,
+    max_levels: int,
+    max_coarse_size: int,
+    p_max_elmts: int,
+    trunc_factor: float,
+    relax: str,
+    coarsen: str,
+    coarsen_rtol: float,
+    interp: str = "ext+i",
+    agg_num_levels: int = 0,
+    nongalerkin_tol: float = 0.0,
+    max_row_sum: float = 1.0,
+    device=None,
+) -> AMGHierarchy:
+    """hypre_BoomerAMGSetup through the host C++ kernels (the reference's
+    ``_setup_hierarchy_native``): the level loop stays in host CSR arrays
+    in float64 from end to end, and each level's tensors are built on
+    ``device`` once. The first ``agg_num_levels`` levels coarsen twice and
+    interpolate through P1 P2; ``nongalerkin_tol`` sparsifies every coarse
+    operator. Chebyshev's lambda_max comes from a host power method."""
+    need_cheby = relax == "chebyshev"
+    dtype = A.dtype
+    levels: List[Level] = []
+    n, Ap, Aj, Ax = _ell_to_csr_arrays(A)
+    A_ell = A.to(device)
+
+    def one_pass(n, Ap, Aj, Ax):
+        """Strength, coarsening and interpolation on one operator: (number
+        of C points, P's CSR, CF splitting); 0 when coarsening stalls."""
+        S = native.strength(n, Ap, Aj, Ax, strength_threshold, max_row_sum)
+        if coarsen == "pmis":
+            cf = native.pmis(n, Ap, Aj, S)
+        else:  # ruge / falgout / hmis on one shard: the RS first pass
+            cf = native.rs(n, Ap, Aj, S)
+            if coarsen == "hmis":
+                # PMIS cleanup: F points with strong rows but no C neighbor
+                for i in np.nonzero(cf == -1)[0]:
+                    seg = slice(Ap[i], Ap[i + 1])
+                    strong = Aj[seg][S[seg].astype(bool)]
+                    if strong.size and not (cf[strong] == 1).any():
+                        cf[i] = 1
+        is_c = cf == 1
+        n_coarse = int(is_c.sum())
+        if n_coarse == 0 or n_coarse >= coarsen_rtol * n:
+            return 0, None, None
+        cmap = np.where(is_c, np.cumsum(is_c) - 1, -1).astype(np.int32)
+        make_p = (native.direct_interp if interp == "direct"
+                  else native.extpi_interp)
+        Pp, Pj, Px = make_p(n, Ap, Aj, Ax, S, cf, cmap)
+        if p_max_elmts > 0 or trunc_factor > 0:
+            Pp, Pj, Px = native.truncate(n, Pp, Pj, Px, p_max_elmts,
+                                         trunc_factor)
+        return n_coarse, (Pp, Pj, Px), cf
+
+    def rap(n, nc, Ap, Aj, Ax, Pp, Pj, Px):
+        Tp, Tj, Tx = native.transpose(n, nc, Pp, Pj, Px)
+        APp, APj, APx = native.spgemm(n, nc, Ap, Aj, Ax, Pp, Pj, Px)
+        return (Tp, Tj, Tx), native.spgemm(nc, nc, Tp, Tj, Tx, APp, APj, APx)
+
+    def vector(v):
+        return torch.from_numpy(v.astype(_np_dtype(dtype))).to(device)
+
+    while len(levels) < max_levels - 1 and n > max_coarse_size:
+        n_coarse, P_csr, cf = one_pass(n, Ap, Aj, Ax)
+        if n_coarse == 0:
+            break
+        Pp, Pj, Px = P_csr
+        if len(levels) < agg_num_levels and n_coarse > max_coarse_size:
+            # aggressive coarsening (hypre's agg_num_levels,
+            # par_2s_interp.c): coarsen the Galerkin operator of the first
+            # pass again and interpolate through P1 P2, so the stored
+            # hierarchy skips the intermediate grid
+            _, (C1p, C1j, C1x) = rap(n, n_coarse, Ap, Aj, Ax, Pp, Pj, Px)
+            n2, P2_csr, _ = one_pass(n_coarse, C1p, C1j, C1x)
+            if n2 > 0:
+                Pp, Pj, Px = native.spgemm(n, n2, Pp, Pj, Px, *P2_csr)
+                if p_max_elmts > 0:
+                    Pp, Pj, Px = native.truncate(n, Pp, Pj, Px, p_max_elmts,
+                                                 trunc_factor)
+                n_coarse = n2
+        (Tp, Tj, Tx), (Cp, Cj, Cx) = rap(n, n_coarse, Ap, Aj, Ax, Pp, Pj, Px)
+        if nongalerkin_tol > 0:
+            Cp, Cj, Cx = _nongalerkin_sparsify(n_coarse, Cp, Cj, Cx,
+                                               nongalerkin_tol)
+        rows = np.repeat(np.arange(n), np.diff(Ap))
+        diag = np.zeros(n)
+        np.add.at(diag, rows[Aj == rows], Ax[Aj == rows])
+        l1 = np.zeros(n)
+        np.add.at(l1, rows, np.abs(Ax))
+        dinv = np.where(diag != 0, 1.0 / np.where(diag != 0, diag, 1.0), 0.0)
+        lmax = 0.0
+        if need_cheby:
+            # host power method on D^{-1} A, with hypre's 1.1 safety margin
+            # (par_relax_more.c:136)
+            x = _hash01_vec(n) - 0.5
+            x /= np.linalg.norm(x)
+            for _ in range(10):
+                y = dinv * native.matvec(n, Ap, Aj, Ax, x)
+                nrm = np.linalg.norm(y)
+                x = y / (nrm if nrm > 0 else 1.0)
+            y = dinv * native.matvec(n, Ap, Aj, Ax, x)
+            lmax = 1.1 * float(x @ y) / float(x @ x)
+        levels.append(Level(
+            A=A_ell, P=_csr_to_ell(n, n_coarse, Pp, Pj, Px, dtype, device),
+            Pt=_csr_to_ell(n_coarse, n, Tp, Tj, Tx, dtype, device),
+            dinv=vector(dinv), l1inv=vector(1.0 / np.where(l1 > 0, l1, 1.0)),
+            lmax=torch.tensor(lmax, dtype=dtype, device=device),
+            cf=torch.from_numpy(cf.astype(np.int8)).to(device)))
+        n, Ap, Aj, Ax = n_coarse, Cp, Cj, Cx
+        A_ell = _csr_to_ell(n, n, Ap, Aj, Ax, dtype, device)
+    return AMGHierarchy(levels=levels,
+                        coarse_inv=vector(_coarse_inverse(n, Ap, Aj, Ax)),
+                        galerkin=True)
+
+
+def _coarse_inverse(n, Ap, Aj, Ax) -> np.ndarray:
+    """The coarsest operator's inverse in float64, as the reference's
+    native path takes it: the plain inverse where it checks out (much
+    cheaper than pinv at n ~ 1500), else the pseudo-inverse. A singular
+    operator (pure Neumann, AMS's gradient space) passes through
+    ``np.linalg.inv`` without raising, so the inverse is verified."""
+    dense = np.zeros((n, n))
+    np.add.at(dense, (np.repeat(np.arange(n), np.diff(Ap)), Aj), Ax)
+    try:
+        inv = np.linalg.inv(dense)
+        scale = max(np.abs(dense).max(initial=0.0), 1.0)
+        if (np.isfinite(inv).all() and np.abs(inv).max(initial=0.0) * scale
+                < 1e12 and np.abs(dense @ inv - np.eye(n)).max(initial=0.0)
+                < 1e-6):
+            return inv
+    except np.linalg.LinAlgError:
+        pass
+    return np.linalg.pinv(dense, rcond=1e-10)
+
+
+def _nongalerkin_sparsify(n, Cp, Cj, Cx, tol):
+    """Non-Galerkin sparsification of a coarse operator (the reference's
+    simplified par_nongalerkin.c): drop the off-diagonal entries with
+    |a_ij| < tol sqrt(|a_ii a_jj|) and lump them onto the diagonal, so row
+    sums (constants) are kept and the coarse stencil shrinks."""
+    rows = np.repeat(np.arange(n), np.diff(Cp))
+    diag = np.zeros(n)
+    dm = Cj == rows
+    np.add.at(diag, rows[dm], Cx[dm])
+    scale = np.sqrt(np.abs(diag[rows]) * np.abs(diag[Cj])) + 1e-300
+    keep = dm | (np.abs(Cx) >= tol * scale)
+    lump = np.zeros(n)
+    np.add.at(lump, rows[~keep], Cx[~keep])
+    Cx = Cx.copy()
+    Cx[dm] += lump[rows[dm]]
+    Np = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(rows[keep], minlength=n), out=Np[1:])
+    return Np, Cj[keep].astype(np.int32), Cx[keep]

@@ -5,10 +5,10 @@
 // Replaces two TPU kernels of the reference package:
 //   - hypre_tpu/seq/dia.py::_dia_kernel (offsets in a device array, reached
 //     through _dia_pallas_call / dia_spmv_pallas)       -> dia_dyn_kernel,
-//                                     dia_rows_kernel<T, G, DeviceTable>
+//                                                          dia_rows_kernel
 //   - hypre_tpu/seq/dia.py::_dia_kernel_static (offsets fixed at compile time,
-//     _dia_pallas_call_static / dia_spmv_pallas_static) -> dia_static_kernel<T, D>,
-//                                     dia_rows_kernel<T, G, ParamTable>
+//     _dia_pallas_call_static / dia_spmv_pallas_static) -> dia_static_kernel<T, D>
+//     (on mostly-zero planes it too runs dia_rows_kernel: see below)
 //
 // What bounds it on this card: device-memory bandwidth. Each row reads D
 // values of dvals and writes one y, with 2*D flops; x is read D times per row
@@ -32,24 +32,35 @@
 // hypre_tpu_torch/seq/dia.py does, so the two agree bit for bit.
 //
 // The row-list route (dia_rows_kernel) computes the same y from a compact
-// layout of the same planes, for planes that are mostly zero (the D = 64
-// fine-space transfer planes of a TransferDia hold ~2 % nonzeros): per row,
-// its nonzeros in ascending plane order as (plane id: uint8, value), behind
-// a row pointer (seq/dia.py::compact_dia builds it once per operator). The
-// dense kernels stream all D*n values; this one moves nnz*5 + (n+1)*4 bytes
-// of layout, y, and x at the columns the layout reaches (at 128^3: 32.8 MB
-// for P, whose x is nonzero at the C points only, 40.7 MB for P^T; against
-// 537 MB of planes). It is bound by those bytes and by the latency of the
-// dependent loads (row pointer -> plane id -> offset -> x). Two schedules,
-// picked once per operator from the mean length of the non-empty rows:
-//   - lanes == 1: a thread sums whole rows (P: 1-4 entries a row), so a
-//     warp's row-pointer, id and value loads are nearly contiguous.
-//   - lanes == 4: the non-empty rows are listed (P^T: ~6 % of the rows, ~25
-//     entries each); a group of 4 lanes loads 4 entries of one
-//     row at a time and its sum is taken IN ENTRY ORDER, one shuffled
-//     product after the other, so the loads are parallel and the order of
-//     the adds is that of one thread. The empty rows get their zero from a
-//     thread-per-row pass in the same launch.
+// layout of the same planes, for planes that are mostly zero: the D = 64
+// fine-space transfer planes of a TransferDia (~2 % nonzeros) and the D = 2
+// coupling view U of a semi-structured matrix (2048 nonzeros over 2.1 M
+// rows). seq/dia.py::compact_dia builds it once per operator: the non-empty
+// rows, ascending, with a pointer over that list and their nonzeros in
+// ascending plane order; when listing rows would cost more bytes than a
+// pointer per row (P: every row holds an entry), every row is listed and
+// the list is implicit. Rows off an explicit list get their zero in the
+// same launch from a pass over a bitmask of the listed rows (n/8 bytes,
+// one word for a warp's 32 rows), which reads no pointer per row: a
+// bitmask because the zero pass then costs y's bytes and 1/32 more, where
+// a per-row pointer cost 4 bytes a row (U: 8.4 MB of pointers for 2048
+// nonzeros). The dense kernels stream all D*n values; this one moves the
+// layout, y, and x at the columns the layout reaches. It is bound by those
+// bytes and by the latency of the chain of dependent loads (list slot ->
+// row pointer -> plane id -> offset -> x), so every thread keeps several
+// chains in flight. An entry names its column by a uint8 plane id through
+// the offset table in shared memory: an int32 column per entry (one link
+// shorter, 3 bytes more) was timed too and was the slower on P and P^T
+// (PERF.md). Kernel 2's offsets compiled in would specialize
+// nothing here (the plane id is data), so a static operator takes the
+// same kernel. Two schedules, picked
+// once per operator from the mean length of the listed rows:
+//   - lanes == 1: a thread sums whole rows (P: 1-4 entries a row; U: 1), so
+//     a warp's pointer, index and value loads are nearly contiguous.
+//   - lanes == 4: a group of 4 lanes loads 4 entries of one row at a time
+//     (P^T: ~6 % of the rows, ~25 entries each) and its sum is taken IN
+//     ENTRY ORDER, one shuffled product after the other, so the loads are
+//     parallel and the order of the adds is that of one thread.
 // Every y is written once, no atomics. Skipping a zero term changes no bit
 // of the sum for finite x: the accumulator starts at +0 and never becomes
 // -0, and acc + (+-0) == acc. So the row-list kernel agrees bit for bit
@@ -62,8 +73,7 @@ namespace {
 constexpr int kThreads = 256;
 // Static instantiations: every D up to try_dia's max_offsets, and above it
 // the values that TransferDia pads its diagonal count to (the setup's width
-// ladder up to probe_transfer_offsets' limit). kMaxStaticD also sizes the
-// offset table the static row-list kernel takes in its parameters.
+// ladder up to probe_transfer_offsets' limit).
 constexpr int kMaxDenseStaticD = 48;
 constexpr int kMaxStaticD = 96;
 
@@ -158,22 +168,13 @@ cudaError_t launch_static(int want, const int* offs_host, const void* dvals,
 }
 
 // ---------------------------------------------------------------------------
-// Row-list route. The offset table goes to shared memory once per block that
-// sums rows, from a device array (dynamic kernel) or from the kernel's
-// parameters (static kernel): the plane id of an entry is data, so the table
-// is read at a run-time index either way.
+// Row-list route: one kernel, offsets from the device (kernel 2's row-list
+// entry folded into kernel 1's: the plane id of an entry is data, so the
+// offset table is read at a run-time index whatever the offsets are).
 // ---------------------------------------------------------------------------
 
-struct DeviceTable {
-  const int* offsets;
-  __device__ int get(int d) const { return __ldg(offsets + d); }
-};
-
-struct ParamTable {
-  int o[kMaxStaticD];
-  __device__ int get(int d) const { return o[d]; }
-};
-
+// One term of a listed row: the plane id of entry k names its offset in
+// the block's shared-memory copy of the offset table.
 template <typename T>
 __device__ __forceinline__ T row_term(const int* s_off,
                                       const unsigned char* __restrict__ r_ids,
@@ -185,51 +186,49 @@ __device__ __forceinline__ T row_term(const int* s_off,
   return mul_rn(__ldg(r_vals + k), xv);
 }
 
-// Loads in flight: the kernel waits on chains of dependent loads (row
-// pointer -> plane id -> offset -> x), so each thread keeps several going.
-// Thread-per-row pass: kRowsPerThread rows a thread, the first
-// kRowsUnroll entries of each loaded before the first is added. Lane
-// groups: kListUnroll rounds of `lanes` entries loaded before they are
-// added. (Chosen by timing variants on the 128^3 transfer planes on an
-// H100: 1 or 4 rows a thread were slower than 2.)
-constexpr int kRowsPerThread = 2;
-constexpr int kRowsUnroll = 4;
-constexpr int kListUnroll = 2;
+// Loads in flight. One thread a listed row: kSlotsPerThread rows a thread,
+// the first kSlotUnroll entries of each loaded before the first is added.
+// Lane groups: kGroupUnroll rounds of G entries a row loaded before they
+// are added (4 a lane; the earlier list kernel kept 2). Zero pass:
+// kZeroRowsPerThread rows a thread. (Chosen by tune_dia_rows.py on an
+// H100 at the main path's shapes: 4 rows a thread were slower than 2 on
+// P, where the rows hold 1.5 entries, and a floor of resident blocks
+// changed nothing.)
+constexpr int kSlotsPerThread = 2;
+constexpr int kSlotUnroll = 4;
+constexpr int kGroupUnroll = 4;
+constexpr int kZeroRowsPerThread = 4;
 
-template <class Table>
-__device__ __forceinline__ void load_table(const Table& table, int* s_off,
-                                           int D) {
-  for (int d = threadIdx.x; d < D; d += blockDim.x) s_off[d] = table.get(d);
-  __syncthreads();
-}
-
-// Blocks [0, list_blocks) run the lane groups over the listed rows (lanes >
-// 1 only); the blocks after them take kRowsPerThread rows a thread: the
-// whole row when lanes == 1, the zero of an empty row otherwise (those
-// blocks read no offset).
-template <typename T, int G, class Table>
+// Blocks [0, list_blocks) sum the listed rows: slot s of the list is row
+// r_rows[s] (Listed), or row s (every row listed, r_rows unread), its
+// entries [r_ptr[s], r_ptr[s+1]). The blocks after them (Listed only)
+// write the zero of every row whose bit in r_mask is clear; a warp's 32
+// rows share one mask word, so that pass reads n/8 bytes and no row
+// pointer.
+template <typename T, int G, bool Listed>
 __global__ void __launch_bounds__(kThreads)
-dia_rows_kernel(const __grid_constant__ Table table,
-                const int* __restrict__ r_ptr,
+dia_rows_kernel(const int* __restrict__ offsets,
+                const int* __restrict__ r_rows, const int* __restrict__ r_ptr,
                 const unsigned char* __restrict__ r_ids,
-                const T* __restrict__ r_vals, const int* __restrict__ r_rows,
-                const T* __restrict__ x, T* __restrict__ y, long long n_rows,
-                long long n_cols, int D, long long n_list, int list_blocks) {
+                const T* __restrict__ r_vals,
+                const unsigned* __restrict__ r_mask, const T* __restrict__ x,
+                T* __restrict__ y, long long n_rows, long long n_cols, int D,
+                long long n_list, int list_blocks) {
   extern __shared__ int s_off[];
-  const long long i0 =
-      ((long long)blockIdx.x - list_blocks) * kThreads * kRowsPerThread +
-      threadIdx.x;
-  if constexpr (G > 1) {
-    if ((int)blockIdx.x >= list_blocks) {
+  if (Listed && (int)blockIdx.x >= list_blocks) {
+    const long long i0 = ((long long)blockIdx.x - list_blocks) * kThreads *
+                             kZeroRowsPerThread + threadIdx.x;
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) {
-        const long long i = i0 + r * kThreads;
-        if (i < n_rows && __ldg(r_ptr + i) == __ldg(r_ptr + i + 1))
-          y[i] = T(0);
-      }
-      return;
+    for (int r = 0; r < kZeroRowsPerThread; ++r) {
+      const long long i = i0 + (long long)r * kThreads;
+      if (i < n_rows && !((__ldg(r_mask + (i >> 5)) >> (i & 31)) & 1u))
+        y[i] = T(0);
     }
-    load_table(table, s_off, D);
+    return;
+  }
+  for (int d = threadIdx.x; d < D; d += kThreads) s_off[d] = __ldg(offsets + d);
+  __syncthreads();
+  if constexpr (G > 1) {
     const long long slot =
         ((long long)blockIdx.x * kThreads + threadIdx.x) / G;
     // a group's lanes share slot, row and trip counts, so they leave and
@@ -238,18 +237,19 @@ dia_rows_kernel(const __grid_constant__ Table table,
     const int lane = threadIdx.x & (G - 1);
     const unsigned mask =
         (unsigned)((1ull << G) - 1ull) << ((threadIdx.x & 31) & ~(G - 1));
-    const long long i = __ldg(r_rows + slot);
-    const int b = __ldg(r_ptr + i), e = __ldg(r_ptr + i + 1);
+    const long long i = Listed ? __ldg(r_rows + slot) : slot;
+    const int b = __ldg(r_ptr + slot), e = __ldg(r_ptr + slot + 1);
     T acc = T(0);
-    for (int c = b; c < e; c += G * kListUnroll) {
-      T p[kListUnroll];
+    for (int c = b; c < e; c += G * kGroupUnroll) {
+      T p[kGroupUnroll];
 #pragma unroll
-      for (int u = 0; u < kListUnroll; ++u) {
+      for (int u = 0; u < kGroupUnroll; ++u) {
         const int k = c + u * G + lane;
         p[u] = k < e ? row_term(s_off, r_ids, r_vals, x, i, k, n_cols) : T(0);
       }
+      // the sum in entry order: one shuffled product after the other
 #pragma unroll
-      for (int u = 0; u < kListUnroll; ++u) {
+      for (int u = 0; u < kGroupUnroll; ++u) {
         const int m = e - c - u * G;  // entries of this round (<= 0: none)
 #pragma unroll
         for (int l = 0; l < G; ++l) {
@@ -260,94 +260,88 @@ dia_rows_kernel(const __grid_constant__ Table table,
     }
     if (lane == 0) y[i] = acc;
   } else {
-    load_table(table, s_off, D);
-    int b[kRowsPerThread], e[kRowsPerThread];
+    const long long s0 =
+        (long long)blockIdx.x * kThreads * kSlotsPerThread + threadIdx.x;
+    long long row[kSlotsPerThread];
+    int b[kSlotsPerThread], e[kSlotsPerThread];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const long long i = i0 + r * kThreads;
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      const long long s = s0 + (long long)r * kThreads;
+      row[r] = -1;
       b[r] = e[r] = 0;
-      if (i < n_rows) {
-        b[r] = __ldg(r_ptr + i);
-        e[r] = __ldg(r_ptr + i + 1);
+      if (s < n_list) {
+        row[r] = Listed ? __ldg(r_rows + s) : s;
+        b[r] = __ldg(r_ptr + s);
+        e[r] = __ldg(r_ptr + s + 1);
       }
     }
-    // the first kRowsUnroll entries of every row are loaded before any is
-    // added; a longer row adds the rest in a loop after them
-    T p[kRowsPerThread][kRowsUnroll];
+    T p[kSlotsPerThread][kSlotUnroll];
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r)
+    for (int r = 0; r < kSlotsPerThread; ++r)
 #pragma unroll
-      for (int u = 0; u < kRowsUnroll; ++u)
-        p[r][u] = b[r] + u < e[r] ? row_term(s_off, r_ids, r_vals, x,
-                                             i0 + r * kThreads, b[r] + u,
-                                             n_cols)
+      for (int u = 0; u < kSlotUnroll; ++u)
+        p[r][u] = b[r] + u < e[r] ? row_term(s_off, r_ids, r_vals, x, row[r],
+                                             b[r] + u, n_cols)
                                   : T(0);
 #pragma unroll
-    for (int r = 0; r < kRowsPerThread; ++r) {
-      const long long i = i0 + r * kThreads;
-      if (i >= n_rows) continue;
+    for (int r = 0; r < kSlotsPerThread; ++r) {
+      if (row[r] < 0) continue;
       T acc = T(0);
 #pragma unroll
-      for (int u = 0; u < kRowsUnroll; ++u)
+      for (int u = 0; u < kSlotUnroll; ++u)
         if (b[r] + u < e[r]) acc = add_rn(acc, p[r][u]);
-      for (int k = b[r] + kRowsUnroll; k < e[r]; ++k)
-        acc = add_rn(acc, row_term(s_off, r_ids, r_vals, x, i, k, n_cols));
-      y[i] = acc;
+      for (int k = b[r] + kSlotUnroll; k < e[r]; ++k)
+        acc = add_rn(acc, row_term(s_off, r_ids, r_vals, x, row[r], k, n_cols));
+      y[row[r]] = acc;
     }
   }
 }
 
-template <typename T, int G, class Table>
-cudaError_t launch_rows_g(const Table& table, const void* r_ptr,
+template <typename T, int G, bool Listed>
+cudaError_t launch_rows_g(const void* r_rows, const void* r_ptr,
                           const void* r_ids, const void* r_vals,
-                          const void* r_rows, const void* x, void* y,
-                          long long n_rows, long long n_cols, int D,
-                          long long n_list, void* stream) {
-  const long long list_blocks =
-      G > 1 ? (n_list * G + kThreads - 1) / kThreads : 0;
-  const long long per_block = (long long)kThreads * kRowsPerThread;
-  const long long blocks = list_blocks + (n_rows + per_block - 1) / per_block;
+                          const void* r_mask, const void* offsets,
+                          const void* x, void* y, long long n_rows,
+                          long long n_cols, int D, long long n_list,
+                          void* stream) {
+  const long long per_block = G > 1 ? kThreads / G
+                                    : (long long)kThreads * kSlotsPerThread;
+  const long long list_blocks = (n_list + per_block - 1) / per_block;
+  const long long zero_rows = (long long)kThreads * kZeroRowsPerThread;
+  const long long blocks =
+      list_blocks + (Listed ? (n_rows + zero_rows - 1) / zero_rows : 0);
   if (blocks > 0)
-    dia_rows_kernel<T, G, Table>
+    dia_rows_kernel<T, G, Listed>
         <<<(unsigned)blocks, kThreads, D * sizeof(int),
            (cudaStream_t)stream>>>(
-            table, (const int*)r_ptr, (const unsigned char*)r_ids,
-            (const T*)r_vals, (const int*)r_rows, (const T*)x, (T*)y, n_rows,
-            n_cols, D, n_list, (int)list_blocks);
+            (const int*)offsets, (const int*)r_rows, (const int*)r_ptr,
+            (const unsigned char*)r_ids, (const T*)r_vals,
+            (const unsigned*)r_mask, (const T*)x, (T*)y, n_rows, n_cols, D,
+            n_list, (int)list_blocks);
   return cudaGetLastError();
 }
 
-template <typename T, class Table>
-cudaError_t launch_rows(const Table& table, const void* r_ptr,
-                        const void* r_ids, const void* r_vals,
-                        const void* r_rows, const void* x, void* y,
-                        long long n_rows, long long n_cols, int D,
-                        long long n_list, int lanes, void* stream) {
-#define HYPRE_ROWS_CASE(G)                                                   \
-  case G:                                                                    \
-    return launch_rows_g<T, G>(table, r_ptr, r_ids, r_vals, r_rows, x, y,    \
-                               n_rows, n_cols, D, n_list, stream);
-  switch (lanes) {
-    HYPRE_ROWS_CASE(1)
-    HYPRE_ROWS_CASE(4)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef HYPRE_ROWS_CASE
-}
-
 template <typename T>
-cudaError_t launch_rows_static(const int* offs_host, const void* r_ptr,
-                               const void* r_ids, const void* r_vals,
-                               const void* r_rows, const void* x, void* y,
-                               long long n_rows, long long n_cols, int D,
-                               long long n_list, int lanes, void* stream) {
-  if (D < 1 || D > kMaxStaticD) return cudaErrorInvalidValue;
-  ParamTable table;
-  for (int d = 0; d < kMaxStaticD; ++d)
-    table.o[d] = d < D ? offs_host[d] : 0;
-  return launch_rows<T>(table, r_ptr, r_ids, r_vals, r_rows, x, y, n_rows,
-                        n_cols, D, n_list, lanes, stream);
+cudaError_t launch_rows(const void* r_rows, const void* r_ptr,
+                        const void* r_ids, const void* r_vals,
+                        const void* r_mask, const void* offsets,
+                        const void* x, void* y, long long n_rows,
+                        long long n_cols, int D, long long n_list, int lanes,
+                        void* stream) {
+  if ((r_rows == nullptr) != (r_mask == nullptr) ||
+      (r_rows == nullptr && n_list != n_rows))
+    return cudaErrorInvalidValue;
+#define HYPRE_ROWS_CASE(G)                                                    \
+  return r_rows ? launch_rows_g<T, G, true>(r_rows, r_ptr, r_ids, r_vals,     \
+                                            r_mask, offsets, x, y, n_rows,    \
+                                            n_cols, D, n_list, stream)        \
+                : launch_rows_g<T, G, false>(r_rows, r_ptr, r_ids, r_vals,    \
+                                             r_mask, offsets, x, y, n_rows,   \
+                                             n_cols, D, n_list, stream);
+  if (lanes == 1) HYPRE_ROWS_CASE(1)
+  if (lanes == 4) HYPRE_ROWS_CASE(4)
+#undef HYPRE_ROWS_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -383,50 +377,32 @@ int hypre_dia_spmv_static_f64(const void* dvals, const void* offs_host,
       D, (const int*)offs_host, dvals, x, y, n_rows, n_cols, stream);
 }
 
-// The row-list route: r_ptr int32 (n_rows + 1), r_ids uint8 and r_vals
-// (nnz) in ascending plane order per row, r_rows int32 (n_list) the listed
-// rows when lanes > 1 (else unused), lanes 1 or 4.
-// offsets: device int32 (D,), D <= 255.
-int hypre_dia_rows_f32(const void* r_ptr, const void* r_ids,
-                       const void* r_vals, const void* r_rows,
-                       const void* offsets, const void* x, void* y,
-                       long long n_rows, long long n_cols, int D,
-                       long long n_list, int lanes, void* stream) {
-  return (int)launch_rows<float>(DeviceTable{(const int*)offsets}, r_ptr,
-                                 r_ids, r_vals, r_rows, x, y, n_rows, n_cols,
-                                 D, n_list, lanes, stream);
+// The row-list route (seq/dia.py::compact_dia builds the layout): r_rows
+// int32 (n_list) the listed rows, ascending, and r_mask int32 (ceil(n/32))
+// their bits, both null when every row is listed (n_list == n_rows);
+// r_ptr int32 (n_list + 1) over the list; r_ids uint8 plane ids and r_vals
+// (nnz) in ascending plane order per row; offsets device int32 (D,),
+// D <= 255; lanes 1 or 4.
+int hypre_dia_rows_f32(const void* r_rows, const void* r_ptr,
+                       const void* r_ids, const void* r_vals,
+                       const void* r_mask, const void* offsets,
+                       const void* x, void* y, long long n_rows,
+                       long long n_cols, int D, long long n_list, int lanes,
+                       void* stream) {
+  return (int)launch_rows<float>(r_rows, r_ptr, r_ids, r_vals, r_mask,
+                                 offsets, x, y, n_rows, n_cols, D, n_list,
+                                 lanes, stream);
 }
 
-int hypre_dia_rows_f64(const void* r_ptr, const void* r_ids,
-                       const void* r_vals, const void* r_rows,
-                       const void* offsets, const void* x, void* y,
-                       long long n_rows, long long n_cols, int D,
-                       long long n_list, int lanes, void* stream) {
-  return (int)launch_rows<double>(DeviceTable{(const int*)offsets}, r_ptr,
-                                  r_ids, r_vals, r_rows, x, y, n_rows,
-                                  n_cols, D, n_list, lanes, stream);
-}
-
-// offs_host: HOST int32 (D,), D in 1..96, copied into the kernel's
-// parameters at launch.
-int hypre_dia_rows_static_f32(const void* r_ptr, const void* r_ids,
-                              const void* r_vals, const void* r_rows,
-                              const void* offs_host, const void* x, void* y,
-                              long long n_rows, long long n_cols, int D,
-                              long long n_list, int lanes, void* stream) {
-  return (int)launch_rows_static<float>((const int*)offs_host, r_ptr, r_ids,
-                                        r_vals, r_rows, x, y, n_rows, n_cols,
-                                        D, n_list, lanes, stream);
-}
-
-int hypre_dia_rows_static_f64(const void* r_ptr, const void* r_ids,
-                              const void* r_vals, const void* r_rows,
-                              const void* offs_host, const void* x, void* y,
-                              long long n_rows, long long n_cols, int D,
-                              long long n_list, int lanes, void* stream) {
-  return (int)launch_rows_static<double>((const int*)offs_host, r_ptr, r_ids,
-                                         r_vals, r_rows, x, y, n_rows,
-                                         n_cols, D, n_list, lanes, stream);
+int hypre_dia_rows_f64(const void* r_rows, const void* r_ptr,
+                       const void* r_ids, const void* r_vals,
+                       const void* r_mask, const void* offsets,
+                       const void* x, void* y, long long n_rows,
+                       long long n_cols, int D, long long n_list, int lanes,
+                       void* stream) {
+  return (int)launch_rows<double>(r_rows, r_ptr, r_ids, r_vals, r_mask,
+                                  offsets, x, y, n_rows, n_cols, D, n_list,
+                                  lanes, stream);
 }
 
 }  // extern "C"

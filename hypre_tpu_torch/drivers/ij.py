@@ -14,8 +14,10 @@ another; the reference takes its type from JAX's x64 switch);
 case, for callers that time or repeat the solve. On the card
 the outer operator is applied through its kernel format
 (``optimize_operator``: the DIA kernel for a stencil problem), and the
-preconditioners keep theirs. AMG-DD (ids 90/91) needs the parallel layer,
-ROADMAP.md Queue 1 item 15, and raises.
+preconditioners keep theirs. Every AMG id sets up as the reference's
+does, through BoomerAMG's default: the host C++ setup, which also runs
+``-agg_nl``. AMG-DD (ids 90/91) needs the parallel layer, ROADMAP.md
+Queue 1 item 15, and raises.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each source in ``hypre_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+Each ``.cu`` source in ``hypre_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, loaded
 with ``ctypes``. Nothing is built when the package is imported: the first
 wrapper that launches a kernel builds every library that is missing, one
@@ -39,8 +39,8 @@ SIGNATURES = {
         "hypre_dia_spmv_f64": [_P, _P, _P, _P, _LL, _LL, _I, _P],
         "hypre_dia_spmv_static_f32": [_P, _P, _P, _P, _LL, _LL, _I, _P],
         "hypre_dia_spmv_static_f64": [_P, _P, _P, _P, _LL, _LL, _I, _P],
-        **{f"hypre_dia_rows{kind}_{t}": [_P] * 7 + [_LL, _LL, _I, _LL, _I, _P]
-           for kind in ("", "_static") for t in ("f32", "f64")},
+        **{f"hypre_dia_rows_{t}": [_P] * 8 + [_LL, _LL, _I, _LL, _I, _P]
+           for t in ("f32", "f64")},
     },
     "banded_spmv": {
         "hypre_banded_spmv": [_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
@@ -49,7 +49,7 @@ SIGNATURES = {
 }
 
 LAUNCHES = {"dia_spmv": 0, "dia_spmv_static": 0, "dia_rows": 0,
-            "dia_rows_static": 0, "banded_spmv": 0, "banded_spmv_t": 0}
+            "banded_spmv": 0, "banded_spmv_t": 0}
 
 # nvcc's -Xptxas -v report of the last build in this process, per source
 BUILD_LOG: dict = {}

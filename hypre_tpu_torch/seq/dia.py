@@ -13,11 +13,13 @@ On a CUDA tensor ``mv`` launches the hand-written kernels of
 ``csrc/dia_spmv.cu`` — the dynamic one (offsets read from the device
 array) or, when ``offsets_static`` is set, the one whose offsets are
 compiled in — in float32 and float64. Planes that are mostly zero (a
-``TransferDia``'s fine-space transfer planes) also carry a row-list layout
+``TransferDia``'s fine-space transfer planes, a semi-structured U's
+coupling view) also carry a row-list layout
 of their nonzeros (``compact_dia``), and the card then runs the row-list
-kernels instead. On a CPU tensor ``mv`` runs the plain PyTorch versions of
-the dense kernels, which compute the same sum in the same order; all three
-routes give the same bits for finite x.
+kernel instead, whichever of the two offset kinds the matrix has. On a
+CPU tensor ``mv`` runs the plain PyTorch versions of the dense kernels,
+which compute the same sum in the same order; all three routes give the
+same bits for finite x.
 """
 
 from __future__ import annotations
@@ -80,12 +82,16 @@ class DiaMatrix:
     n_cols: int
     margin: int = 0
     offsets_static: tuple | None = None
-    # row-list layout of the nonzeros of dvals (``compact_dia``): per row,
-    # ascending plane id; None when the planes are kept dense only
-    r_ptr: torch.Tensor | None = None  # (n_rows + 1,) int32
+    # row-list layout of the nonzeros of dvals (``compact_dia``): the
+    # listed rows' entries in ascending plane order; None when the planes
+    # are kept dense only
+    r_ptr: torch.Tensor | None = None  # (n_list + 1,) int32
     r_ids: torch.Tensor | None = None  # (nnz,) uint8 plane ids
     r_vals: torch.Tensor | None = None  # (nnz,) dvals.dtype
-    r_rows: torch.Tensor | None = None  # (n_list,) int32, when r_lanes > 1
+    # the listed (non-empty) rows, ascending, and their bitmask; None when
+    # every row is listed (n_list == n_rows)
+    r_rows: torch.Tensor | None = None  # (n_list,) int32
+    r_mask: torch.Tensor | None = None  # (ceil(n_rows / 32),) int32
     r_lanes: int = 1  # lanes per listed row (1: one thread per row)
 
     def __post_init__(self):
@@ -158,12 +164,9 @@ class DiaMatrix:
         if x.shape[0] != self.n_cols:
             raise ValueError(f"shape mismatch: {self.shape} @ {tuple(x.shape)}")
         if x.is_cuda and self.r_ptr is not None:
-            rows = (self.r_ptr, self.r_ids, self.r_vals)
-            if self.offsets_static is not None:
-                return dia_rows_static(*rows, self.offsets_static, x,
-                                       self.n_cols, self.r_rows, self.r_lanes)
-            return dia_rows(*rows, self.offsets, x, self.n_cols, self.r_rows,
-                            self.r_lanes)
+            return dia_rows(self.r_ptr, self.r_ids, self.r_vals, self.offsets,
+                            x, self.n_rows, self.n_cols, self.r_rows,
+                            self.r_mask, self.r_lanes)
         if self.offsets_static is not None:
             return dia_spmv_static(self.dvals, self.offsets_static, x,
                                    self.n_cols)
@@ -227,7 +230,6 @@ def dia_spmv_static_plain(dvals, offsets_static, x) -> torch.Tensor:
 _DTYPE_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # Diagonal counts csrc/dia_spmv.cu instantiates the static kernel for: every
 # count up to try_dia's max_offsets, and the widths TransferDia pads to
-MAX_STATIC_D = 96
 STATIC_D_LADDER = (56, 64, 80, 96)
 
 
@@ -301,26 +303,51 @@ def dia_spmv_static(dvals, offsets_static, x, n_cols: int) -> torch.Tensor:
 MAX_ROWS_D = 255  # plane ids are stored as uint8
 ROW_LANES = (1, 4)
 # compact when the row list takes at most this share of the planes' bytes:
-# the 7-pt A (every slot a nonzero) stays dense, a TransferDia's planes
-# (~2 % nonzeros at D = 64) compact
+# the 7-pt A (every slot a nonzero) stays dense; a TransferDia's planes
+# (~2 % nonzeros at D = 64) and a semi-structured U's coupling view (a few
+# thousand nonzeros over millions of rows) compact
 ROWS_MAX_SHARE = 0.25
-# one thread a row while the non-empty rows hold at most this many entries
-# on average, else 4 lanes a listed row: P of the bench hierarchy (1.5 a
-# row) gets one thread a row, its P^T (25 a row) 4 lanes, at every grid size
-ROWS_PER_LANE = 8
+# one thread a listed row while the listed rows hold at most this many
+# entries on average, else 4 lanes a listed row: P of the bench hierarchy
+# (1.5 a row) and U (1) get one thread a row, P^T (25 a row) 4 lanes. On
+# an H100 the 4 lanes overtake one thread between 12 and 16 entries a row
+# (chip_smoke.py's row_lanes_sweep, PERF.md).
+ROWS_PER_LANE = 12
 
 
-def row_list_bytes(nnz: int, n_rows: int, itemsize: int) -> int:
+def row_list_bytes(nnz: int, n_rows: int, n_list: int,
+                   itemsize: int) -> int:
     """Bytes of the row-list layout: a value and a plane id per nonzero,
-    and the row pointer."""
-    return nnz * (itemsize + 1) + (n_rows + 1) * 4
+    the pointer over the listed rows and, when not every row is listed,
+    the listed rows and their bitmask."""
+    entries = nnz * (itemsize + 1)
+    if n_list == n_rows:
+        return entries + (n_rows + 1) * 4
+    return entries + (n_list + 1) * 4 + n_list * 4 + -(-n_rows // 32) * 4
+
+
+def _row_bitmask(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """int32 words whose bit i % 32 of word i // 32 is set for each row i
+    in ``rows``."""
+    bits = torch.zeros(-(-n // 32) * 32, dtype=torch.int64,
+                       device=rows.device)
+    bits[rows.long()] = 1
+    words = (bits.view(-1, 32) << torch.arange(32, device=rows.device)).sum(1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def compact_dia(M: DiaMatrix) -> DiaMatrix:
-    """M with the row-list layout of its nonzeros (``r_ptr``, ``r_ids``,
-    ``r_vals``, and the listed rows when a row gets more than one lane), or
-    M as it is when that layout would take more than ``ROWS_MAX_SHARE`` of
-    the planes' bytes.
+    """M with the row-list layout of its nonzeros, or M as it is when that
+    layout would take more than ``ROWS_MAX_SHARE`` of the planes' bytes.
+
+    The layout: ``r_ptr`` over the non-empty rows' entries, ``r_ids``
+    (uint8 plane ids) and ``r_vals`` in ascending plane order per row,
+    and, where listing the non-empty rows costs fewer bytes than a pointer
+    per row, ``r_rows`` (the listed rows, ascending) with ``r_mask``
+    (their bitmask, from which the kernel writes the other rows' zeros);
+    else every row is listed and ``r_rows`` is None. ``r_lanes`` is 1 (a
+    thread a row) or 4 (lanes a row, for a mean above ``ROWS_PER_LANE``
+    entries).
 
     One pass over ``dvals.T != 0``: ``nonzero`` on the (n, D) view lists
     the nonzeros row by row, planes ascending within a row, which is the
@@ -335,115 +362,104 @@ def compact_dia(M: DiaMatrix) -> DiaMatrix:
         raise ValueError(f"row-list layout takes at most {MAX_ROWS_D} "
                          f"diagonals (uint8 plane ids), got {D}")
     nz = (M.dvals != 0).T.contiguous()
-    nnz = int(nz.sum())
+    counts = nz.sum(1)
+    nnz = int(counts.sum())
+    listed = torch.nonzero(counts)[:, 0].to(torch.int32)
+    n_list = int(listed.shape[0])
     itemsize = M.dvals.element_size()
-    if row_list_bytes(nnz, n, itemsize) > ROWS_MAX_SHARE * D * n * itemsize:
+    if row_list_bytes(nnz, n, n, itemsize) <= row_list_bytes(
+            nnz, n, n_list, itemsize):
+        listed, n_list = None, n
+    if row_list_bytes(nnz, n, n_list, itemsize) > \
+            ROWS_MAX_SHARE * D * n * itemsize:
         return M
     rows, ids = torch.nonzero(nz, as_tuple=True)
-    r_ptr = torch.searchsorted(
-        rows, torch.arange(n + 1, device=rows.device)).to(torch.int32)
-    listed = torch.nonzero(r_ptr[1:] > r_ptr[:-1])[:, 0].to(torch.int32)
-    lanes = 1 if nnz <= ROWS_PER_LANE * listed.shape[0] else ROW_LANES[-1]
+    per_slot = counts if listed is None else counts[listed.long()]
+    r_ptr = torch.zeros(n_list + 1, dtype=torch.int32, device=rows.device)
+    torch.cumsum(per_slot, 0, out=r_ptr[1:])
+    lanes = 1 if nnz <= ROWS_PER_LANE * max(n_list, 1) else ROW_LANES[-1]
     return dataclasses.replace(
         M, r_ptr=r_ptr, r_ids=ids.to(torch.uint8),
-        r_vals=M.dvals[ids, rows].contiguous(),
-        r_rows=listed if lanes > 1 else None, r_lanes=lanes)
+        r_vals=M.dvals[ids, rows].contiguous(), r_rows=listed,
+        r_mask=None if listed is None else _row_bitmask(listed, n),
+        r_lanes=lanes)
 
 
-def dia_rows_plain(r_ptr, r_ids, r_vals, offsets, x, n_cols: int
-                   ) -> torch.Tensor:
-    """Plain version of the row-list kernels: each row's products added
-    left to right in entry order, as the kernels add them. ``offsets`` is
-    the device table or the static tuple."""
-    n = r_ptr.shape[0] - 1
+def dia_rows_plain(r_ptr, r_ids, r_vals, offsets, x, n_rows: int,
+                   n_cols: int, r_rows=None) -> torch.Tensor:
+    """Plain version of the row-list kernel: each listed row's products
+    added left to right in entry order, as the kernel adds them, and a
+    zero in every other row. ``offsets`` is the device table or the
+    static tuple."""
     dev = x.device
+    n_list = r_ptr.shape[0] - 1
     counts = (r_ptr[1:] - r_ptr[:-1]).long()
-    rows = torch.repeat_interleave(torch.arange(n, device=dev), counts)
-    offs = torch.as_tensor(offsets, device=dev).long()
-    cols = rows + offs[r_ids.long()]
+    slots = torch.repeat_interleave(torch.arange(n_list, device=dev), counts)
+    listed = (torch.arange(n_list, device=dev) if r_rows is None
+              else r_rows.long())
+    rows = listed[slots]
+    cols = rows + torch.as_tensor(offsets, device=dev).long()[r_ids.long()]
     inside = (cols >= 0) & (cols < n_cols)
-    xv = torch.where(inside, x[cols.clamp(0, n_cols - 1)], x.new_zeros(()))
-    pos = torch.arange(rows.shape[0], device=dev) - r_ptr[:-1].long()[rows]
-    width = int(counts.max()) if n else 0
-    slab = x.new_zeros((n, max(width, 1)))
-    slab[rows, pos] = r_vals * xv
-    return fold_sum(slab, dim=1)
+    xv = torch.where(inside, x[cols.clamp(0, max(n_cols - 1, 0))],
+                     x.new_zeros(()))
+    pos = torch.arange(slots.shape[0], device=dev) - r_ptr[:-1].long()[slots]
+    width = int(counts.max()) if n_list else 0
+    slab = x.new_zeros((n_list, max(width, 1)))
+    slab[slots, pos] = r_vals * xv
+    y = x.new_zeros(n_rows)
+    y[listed] = fold_sum(slab, dim=1)
+    return y
 
 
-def _check_rows_operands(r_ptr, r_ids, r_vals, offsets_len, x, n_cols,
-                         r_rows, lanes):
+def dia_rows(r_ptr, r_ids, r_vals, offsets, x, n_rows: int, n_cols: int,
+             r_rows=None, r_mask=None, lanes: int = 1) -> torch.Tensor:
+    """y = A @ x from A's row-list layout (``compact_dia``): the row-list
+    kernel that replaces ``hypre_tpu/seq/dia.py::_dia_kernel`` (and, on
+    mostly-zero planes, ``_dia_kernel_static``) on a CUDA tensor, the
+    plain version on a CPU tensor. ``offsets``: the device table, or the
+    static tuple (copied to the device). ``r_rows`` and ``r_mask`` come
+    together, or neither when every row is listed."""
+    if not x.is_cuda:
+        return dia_rows_plain(r_ptr, r_ids, r_vals, offsets, x, n_rows,
+                              n_cols, r_rows)
+    dev = x.device
     if r_vals.dtype not in _DTYPE_SUFFIX:
         raise ValueError(f"DIA kernel takes float32/float64, got "
                          f"{r_vals.dtype}")
     if lanes not in ROW_LANES:
         raise ValueError(f"lanes must be one of {ROW_LANES}, got {lanes}")
-    if r_ptr.dim() != 1 or r_ptr.shape[0] < 1:
-        raise ValueError("r_ptr must be a 1-D row pointer")
-    kernels.require(r_ptr, "r_ptr", torch.int32, r_ptr.shape, x.device)
-    kernels.require(r_vals, "r_vals", r_vals.dtype, (r_vals.numel(),),
-                    x.device)
-    kernels.require(r_ids, "r_ids", torch.uint8, r_vals.shape, x.device)
-    kernels.require(x, "x", r_vals.dtype, (n_cols,), x.device)
-    if lanes > 1:
-        if r_rows is None:
-            raise ValueError(f"{lanes} lanes per row need the listed rows")
-        kernels.require(r_rows, "r_rows", torch.int32, (r_rows.numel(),),
-                        x.device)
-    if not 1 <= offsets_len <= MAX_ROWS_D:
-        raise ValueError(f"row-list kernel takes 1..{MAX_ROWS_D} diagonals, "
-                         f"got {offsets_len}")
-
-
-def _launch_rows(fn_name, what, r_ptr, r_ids, r_vals, offs_ptr, D, x,
-                 n_cols, r_rows, lanes):
-    n = r_ptr.shape[0] - 1
-    y = torch.empty(n, dtype=r_vals.dtype, device=x.device)
-    fn = getattr(kernels.library("dia_spmv"),
-                 f"{fn_name}_{_DTYPE_SUFFIX[r_vals.dtype]}")
-    rows_ptr = r_rows.data_ptr() if lanes > 1 else None
-    n_list = r_rows.shape[0] if lanes > 1 else 0
-    err = fn(r_ptr.data_ptr(), r_ids.data_ptr(), r_vals.data_ptr(), rows_ptr,
-             offs_ptr, x.data_ptr(), y.data_ptr(), n, n_cols, D, n_list,
-             lanes, kernels.stream_of(x))
-    kernels.check(err, what)
-    kernels.LAUNCHES[what] += 1
-    return y
-
-
-def dia_rows(r_ptr, r_ids, r_vals, offsets, x, n_cols: int, r_rows=None,
-             lanes: int = 1) -> torch.Tensor:
-    """y = A @ x from A's row-list layout with the offsets read from the
-    device: the row-list kernel that replaces
-    ``hypre_tpu/seq/dia.py::_dia_kernel`` on mostly-zero planes on a CUDA
-    tensor, the plain version on a CPU tensor. With ``lanes`` > 1,
-    ``r_rows`` must list every non-empty row in ascending order, as
-    ``compact_dia`` builds it: the kernel writes the other rows' zeros."""
-    if not x.is_cuda:
-        return dia_rows_plain(r_ptr, r_ids, r_vals, offsets, x, n_cols)
+    if (r_rows is None) != (r_mask is None):
+        raise ValueError("r_rows and r_mask come together")
+    n_list = n_rows if r_rows is None else r_rows.numel()
+    kernels.require(r_ptr, "r_ptr", torch.int32, (n_list + 1,), dev)
+    kernels.require(r_vals, "r_vals", r_vals.dtype, (r_vals.numel(),), dev)
+    kernels.require(r_ids, "r_ids", torch.uint8, r_vals.shape, dev)
+    kernels.require(x, "x", r_vals.dtype, (n_cols,), dev)
+    if r_rows is not None:
+        kernels.require(r_rows, "r_rows", torch.int32, (n_list,), dev)
+        kernels.require(r_mask, "r_mask", torch.int32, (-(-n_rows // 32),),
+                        dev)
+    if not isinstance(offsets, torch.Tensor):
+        offsets = torch.tensor(offsets, dtype=torch.int32, device=dev)
     D = offsets.shape[0]
-    _check_rows_operands(r_ptr, r_ids, r_vals, D, x, n_cols, r_rows, lanes)
-    kernels.require(offsets, "offsets", torch.int32, (D,), x.device)
-    return _launch_rows("hypre_dia_rows", "dia_rows", r_ptr, r_ids, r_vals,
-                        offsets.data_ptr(), D, x, n_cols, r_rows, lanes)
-
-
-def dia_rows_static(r_ptr, r_ids, r_vals, offsets_static, x, n_cols: int,
-                    r_rows=None, lanes: int = 1) -> torch.Tensor:
-    """y = A @ x from A's row-list layout with the offsets passed in the
-    kernel's parameters: replaces ``hypre_tpu/seq/dia.py::_dia_kernel_static``
-    on mostly-zero planes on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    if not x.is_cuda:
-        return dia_rows_plain(r_ptr, r_ids, r_vals, offsets_static, x, n_cols)
-    D = len(offsets_static)
-    _check_rows_operands(r_ptr, r_ids, r_vals, D, x, n_cols, r_rows, lanes)
-    if D > MAX_STATIC_D:
-        raise ValueError(f"static row-list kernel takes 1..{MAX_STATIC_D} "
+    if not 1 <= D <= MAX_ROWS_D:
+        raise ValueError(f"row-list kernel takes 1..{MAX_ROWS_D} "
                          f"diagonals, got {D}")
-    offs = _host_offsets(tuple(int(o) for o in offsets_static))
-    return _launch_rows("hypre_dia_rows_static", "dia_rows_static", r_ptr,
-                        r_ids, r_vals, ctypes.addressof(offs), D, x, n_cols,
-                        r_rows, lanes)
+    kernels.require(offsets, "offsets", torch.int32, (D,), dev)
+    y = torch.empty(n_rows, dtype=r_vals.dtype, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = getattr(kernels.library("dia_spmv"),
+                 f"hypre_dia_rows_{_DTYPE_SUFFIX[r_vals.dtype]}")
+    err = fn(ptr(r_rows), r_ptr.data_ptr(), r_ids.data_ptr(),
+             r_vals.data_ptr(), ptr(r_mask), offsets.data_ptr(),
+             x.data_ptr(), y.data_ptr(), n_rows, n_cols, D, n_list, lanes,
+             kernels.stream_of(x))
+    kernels.check(err, "dia_rows")
+    kernels.LAUNCHES["dia_rows"] += 1
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -212,8 +212,10 @@ def test_zero_rhs_and_unported_options():
     x, info = H.pcg(tA.mv, torch.zeros(64, dtype=torch.float64), device="cpu")
     assert bool(info.converged) and int(info.iterations) == 0
     assert float(x.abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        H.setup_hierarchy(tA, setup_backend="native", device="cpu")
+    # the host C++ setup is ported now
+    native = H.setup_hierarchy(tA, setup_backend="native", max_coarse_size=10,
+                               device="cpu")
+    assert len(native.levels) >= 1
     with pytest.raises(NotImplementedError, match="device"):
         H.setup_hierarchy(tA, setup_backend="jax", agg_num_levels=1,
                           device="cpu")

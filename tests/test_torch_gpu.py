@@ -9,6 +9,8 @@ the port is installed; there, skip the JAX-based conftest:
 Without a card every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -247,9 +249,15 @@ def test_device_setup_is_the_same_on_card_and_cpu_and_twice_on_card():
 
 def row_planes(rng, D, n, kind):
     """Mostly-zero planes shaped like a TransferDia's: "P" rows hold 1-4
-    entries, "Pt" rows are empty but for ~6 % that hold 10-43 each."""
+    entries, "Pt" rows are empty but for ~6 % that hold 10-43 each; "U"
+    (D = 2) like a semi-structured coupling view: ~300 rows around the
+    middle hold one or two entries."""
     dvals = np.zeros((D, n))
-    if kind == "P":
+    if kind == "U":
+        rows = np.sort(rng.choice(np.arange(n // 2 - 400, n // 2 + 400), 300,
+                                  replace=False))
+        lens = np.where(np.arange(300) % 7 == 0, 2, 1)
+    elif kind == "P":
         rows = np.arange(n)
         lens = rng.integers(1, 5, n)
     else:
@@ -262,49 +270,65 @@ def row_planes(rng, D, n, kind):
     return dvals
 
 
+def rows_args(C):
+    return C.r_ptr, C.r_ids, C.r_vals
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["P", "Pt"])
+@pytest.mark.parametrize("kind", ["P", "Pt", "U"])
 def test_row_list_kernels_match_plain_and_dense_on_card(kind):
-    """The row-list kernels against their plain version and against the
-    dense kernels on the same planes: the same sum in the same order, so
-    the same bits; two runs give the same bits."""
+    """The row-list kernel against its plain version and against the dense
+    kernels on the same planes: the same sum in the same order, so the
+    same bits; two runs give the same bits; the static offsets take the
+    same kernel. P lists every row (implicitly), P^T and U list theirs and
+    get the other rows' zeros from the bitmask pass."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rng = np.random.default_rng(64 if kind == "P" else 65)
-    D, n = 64, 100003
-    offs = tuple(sorted(int(o) for o in
-                        rng.choice(np.arange(-4095, 4096), D, replace=False)))
+    rng = np.random.default_rng({"P": 64, "Pt": 65, "U": 66}[kind])
+    n = 100003
+    if kind == "U":
+        D, offs = 2, (-(n // 2), n // 2)
+    else:
+        D = 64
+        offs = tuple(sorted(int(o) for o in rng.choice(
+            np.arange(-4095, 4096), D, replace=False)))
     dv = row_planes(rng, D, n, kind)
     for dtype in (torch.float32, torch.float64):
         M = dia.DiaMatrix(dvals=torch.from_numpy(dv).to("cuda", dtype),
                           offsets=offs, n_cols=n)
         C = dia.compact_dia(M)
         assert C.r_ptr is not None
-        assert (C.r_lanes == 1) == (kind == "P")
+        assert (C.r_lanes == 1) == (kind != "Pt")
+        assert (C.r_rows is None) == (kind == "P")
         x = torch.from_numpy(rng.standard_normal(n)).to("cuda", dtype)
-        rows = (C.r_ptr, C.r_ids, C.r_vals)
-        plain = dia.dia_rows_plain(*rows, C.offsets, x, n)
+        plain = dia.dia_rows_plain(*rows_args(C), C.offsets, x, n, n,
+                                   C.r_rows)
         dense = dia.dia_spmv(M.dvals, M.offsets, x, n, M.margin)
         before = dict(kernels.LAUNCHES)
-        y = dia.dia_rows(*rows, C.offsets, x, n, C.r_rows, C.r_lanes)
-        y2 = dia.dia_rows(*rows, C.offsets, x, n, C.r_rows, C.r_lanes)
-        y_st = dia.dia_rows_static(*rows, offs, x, n, C.r_rows, C.r_lanes)
-        y_mv = C.mv(x)
+        tail = (C.r_rows, C.r_mask, C.r_lanes)
+        y = dia.dia_rows(*rows_args(C), C.offsets, x, n, n, *tail)
+        y2 = dia.dia_rows(*rows_args(C), C.offsets, x, n, n, *tail)
+        y_st = dia.dia_rows(*rows_args(C), offs, x, n, n, *tail)
+        y_mv = dataclasses.replace(C, offsets_static=offs).mv(x)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["dia_rows"] == before["dia_rows"] + 3
-        assert kernels.LAUNCHES["dia_rows_static"] == \
-            before["dia_rows_static"] + 1
+        assert kernels.LAUNCHES["dia_rows"] == before["dia_rows"] + 4
         assert kernels.LAUNCHES["dia_spmv"] == before["dia_spmv"]
+        assert kernels.LAUNCHES["dia_spmv_static"] == \
+            before["dia_spmv_static"]
         for got in (y, y2, y_st, y_mv):
             assert torch.equal(got, plain)
             assert torch.equal(got, dense)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("listing", ["implicit", "listed"])
 @pytest.mark.parametrize("lanes", dia.ROW_LANES)
-def test_row_list_kernel_every_lane_count_on_card(lanes):
-    """Each schedule of the row-list kernel, forced on one layout: rows of
-    0 to D entries, offsets at +-margin, n not a multiple of 32."""
+def test_row_list_kernel_every_lane_count_on_card(lanes, listing,
+                                                  monkeypatch):
+    """Each schedule of the row-list kernel, forced on one layout (by the
+    mean-length threshold): rows of 0 to D entries, offsets at +-margin, n
+    not a multiple of 32; every row listed, or a list of a fifth of the
+    rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(lanes)
@@ -313,19 +337,24 @@ def test_row_list_kernel_every_lane_count_on_card(lanes):
                             rng.choice(np.arange(-1023, 1024), D - 2,
                                        replace=False)) | {-1024, 1024}))
     dv = rng.standard_normal((D, n)) * (rng.random((D, n)) < 0.1)
+    if listing == "listed":
+        dv[:, rng.random(n) < 0.8] = 0.0
     dv[:, 5] = rng.standard_normal(D)  # a full row
     dv[:, n - 1] = 0.0  # an empty row
     M = dia.DiaMatrix(dvals=torch.from_numpy(dv).to("cuda", torch.float32),
                       offsets=offs, n_cols=n)
+    monkeypatch.setattr(dia, "ROWS_PER_LANE",
+                        float("inf") if lanes == 1 else 0)
     C = dia.compact_dia(M)
-    listed = torch.nonzero(C.r_ptr[1:] > C.r_ptr[:-1])[:, 0].to(torch.int32)
-    rows = (C.r_ptr, C.r_ids, C.r_vals)
+    assert C.r_lanes == lanes
+    assert (C.r_rows is None) == (listing == "implicit")
     x = torch.from_numpy(rng.standard_normal(n)).to("cuda", torch.float32)
     ref = dia.dia_spmv_static_plain(M.dvals, offs, x)
-    for fn, o in ((dia.dia_rows, C.offsets), (dia.dia_rows_static, offs)):
-        y = fn(*rows, o, x, n, listed, lanes)
+    tail = (C.r_rows, C.r_mask, lanes)
+    for o in (C.offsets, offs):
+        y = dia.dia_rows(*rows_args(C), o, x, n, n, *tail)
         assert torch.equal(y, ref)
-        assert torch.equal(fn(*rows, o, x, n, listed, lanes), y)
+        assert torch.equal(dia.dia_rows(*rows_args(C), o, x, n, n, *tail), y)
 
 
 @pytest.mark.gpu
@@ -340,13 +369,14 @@ def test_row_list_wrapper_raises_on_bad_operands_on_card():
     M = dia.DiaMatrix(dvals=torch.from_numpy(row_planes(rng, D, n, "Pt"))
                       .to("cuda", torch.float32), offsets=offs, n_cols=n)
     C = dia.compact_dia(M)
+    assert C.r_rows is not None
     x = torch.ones(n, device="cuda")
     good = dict(r_ptr=C.r_ptr, r_ids=C.r_ids, r_vals=C.r_vals)
     bad = [
         dict(good, r_ptr=C.r_ptr.long()),
         dict(good, r_ptr=C.r_ptr.cpu()),
         dict(good, r_ptr=C.r_ptr[:, None]),
-        dict(good, r_ids=C.r_ids.to(torch.int32)),
+        dict(good, r_ids=C.r_ids.to(torch.int64)),
         dict(good, r_ids=C.r_ids[1:]),
         dict(good, r_ids=C.r_ids.cpu()),
         dict(good, r_vals=C.r_vals.double()),
@@ -355,14 +385,22 @@ def test_row_list_wrapper_raises_on_bad_operands_on_card():
     ]
     before = dict(kernels.LAUNCHES)
     for ops in bad:
-        for fn, o in ((dia.dia_rows, C.offsets), (dia.dia_rows_static, offs)):
+        for o in (C.offsets, offs):
             with pytest.raises(ValueError):
-                fn(ops["r_ptr"], ops["r_ids"], ops["r_vals"], o, x, n,
-                   C.r_rows, C.r_lanes)
-    with pytest.raises(ValueError, match="listed rows"):
-        dia.dia_rows(*good.values(), C.offsets, x, n, None, C.r_lanes)
+                dia.dia_rows(ops["r_ptr"], ops["r_ids"], ops["r_vals"], o, x,
+                             n, n, C.r_rows, C.r_mask, C.r_lanes)
+    with pytest.raises(ValueError, match="together"):
+        dia.dia_rows(*good.values(), C.offsets, x, n, n, C.r_rows, None,
+                     C.r_lanes)
+    with pytest.raises(ValueError, match="r_mask"):
+        dia.dia_rows(*good.values(), C.offsets, x, n, n, C.r_rows,
+                     C.r_mask[1:], C.r_lanes)
+    with pytest.raises(ValueError, match="r_ptr"):
+        dia.dia_rows(*good.values(), C.offsets, x, n, n, None, None,
+                     C.r_lanes)
     with pytest.raises(ValueError, match="lanes"):
-        dia.dia_rows(*good.values(), C.offsets, x, n, C.r_rows, 3)
+        dia.dia_rows(*good.values(), C.offsets, x, n, n, C.r_rows, C.r_mask,
+                     3)
     assert kernels.LAUNCHES == before
 
 

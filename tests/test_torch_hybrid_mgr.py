@@ -4,7 +4,8 @@ hypre_tpu's, in float64 on the CPU, on the reference's own test problems
 tests/test_misc_components.py).
 
 The reference's solvers are given BoomerAMG(setup_backend="jax") (their
-default 'auto' picks the C++ setup), and its MGR forms A_H = R A P with
+default 'auto' picks the C++ setup), and so are the port's, wherever a
+test holds the two against each other; the reference's MGR forms A_H = R A P with
 the C++ SpGEMM, which the test replaces with a numpy CSR product
 (monkeypatch): nothing here calls the reference's native library.
 """
@@ -71,8 +72,9 @@ def test_hybrid_escalates_to_amg_as_the_reference_does():
     jh = JHybridSolver(cf_tol=0.5, dscg_max_iter=500,
                        amg=JBoomerAMG(setup_backend="jax")).setup(jA)
     jx, ji = jh.solve(jnp.asarray(b), rtol=1e-8)
-    th = H.HybridSolver(cf_tol=0.5, dscg_max_iter=500).setup(tA,
-                                                             device="cpu")
+    th = H.HybridSolver(cf_tol=0.5, dscg_max_iter=500,
+                        amg=H.BoomerAMG(setup_backend="jax")).setup(
+        tA, device="cpu")
     tx, ti = th.solve(torch.from_numpy(b), rtol=1e-8)
     assert bool(ti.converged) and bool(ji.converged)
     assert th.amg_iterations > 0 and th.dscg_iterations > 0
@@ -114,7 +116,8 @@ def test_hybrid_other_krylov_phases(solver_type, ds_max):
     jh = JHybridSolver(solver_type=solver_type, dscg_max_iter=ds_max,
                        amg=JBoomerAMG(setup_backend="jax")).setup(jA)
     jx, ji = jh.solve(jnp.asarray(b), rtol=1e-8)
-    th = H.HybridSolver(solver_type=solver_type, dscg_max_iter=ds_max) \
+    th = H.HybridSolver(solver_type=solver_type, dscg_max_iter=ds_max,
+                        amg=H.BoomerAMG(setup_backend="jax")) \
         .setup(tA, device="cpu")
     tx, ti = th.solve(torch.from_numpy(b), rtol=1e-8)
     assert bool(ti.converged) and th.amg_iterations > 0
@@ -166,7 +169,8 @@ def mgr_pair(request):
             kw = dict(num_relax_sweeps=2)
         jm = JMGR(coarse_amg=JBoomerAMG(setup_backend="jax"), **kw).setup(
             jA, cpts)
-        tm = H.MGR(**kw).setup(tA, cpts, device="cpu")
+        tm = H.MGR(coarse_amg=H.BoomerAMG(setup_backend="jax"), **kw).setup(
+            tA, cpts, device="cpu")
     finally:
         mp.undo()
     return request.param, jm, tm, jA, tA
@@ -220,7 +224,8 @@ def test_mgr_global_jacobi_smoother_matches(no_native):
     jm = JMGR(coarse_amg=JBoomerAMG(setup_backend="jax"),
               global_smooth_type="jacobi", global_smooth_iters=2).setup(
         jA, cpts)
-    tm = H.MGR(global_smooth_type="jacobi", global_smooth_iters=2).setup(
+    tm = H.MGR(coarse_amg=H.BoomerAMG(setup_backend="jax"),
+               global_smooth_type="jacobi", global_smooth_iters=2).setup(
         tA, cpts, device="cpu")
     f = np.random.default_rng(3).standard_normal(tA.n_rows)
     assert rel_close(tm.cycle(torch.from_numpy(f)), jm.cycle(jnp.asarray(f)),
@@ -236,7 +241,8 @@ def test_mgr_ilu_global_smoother_matches(no_native):
     jA, tA, cpts = mgr_laplacian()
     jm = JMGR(coarse_amg=JBoomerAMG(setup_backend="jax"),
               global_smooth_type="ilu").setup(jA, cpts)
-    tm = H.MGR(global_smooth_type="ilu").setup(tA, cpts, device="cpu")
+    tm = H.MGR(coarse_amg=H.BoomerAMG(setup_backend="jax"),
+               global_smooth_type="ilu").setup(tA, cpts, device="cpu")
     f = np.random.default_rng(5).standard_normal(tA.n_rows)
     assert rel_close(tm.cycle(torch.from_numpy(f)), jm.cycle(jnp.asarray(f)),
                      1e-10)
@@ -258,7 +264,9 @@ def test_mgr_injection_interpolation(no_native):
     jA, tA, cpts = mgr_laplacian()
     jm = JMGR(interp_type="injection",
               coarse_amg=JBoomerAMG(setup_backend="jax")).setup(jA, cpts)
-    tm = H.MGR(interp_type="injection").setup(tA, cpts, device="cpu")
+    tm = H.MGR(interp_type="injection",
+               coarse_amg=H.BoomerAMG(setup_backend="jax")).setup(
+        tA, cpts, device="cpu")
     same_csr(ell_to_csr(tm.levels[0].P), j_ell_to_csr(jm.levels[0].P))
     f = np.random.default_rng(4).standard_normal(tA.n_rows)
     assert rel_close(tm.cycle(torch.from_numpy(f)), jm.cycle(jnp.asarray(f)),
@@ -280,7 +288,9 @@ def test_block_tridiag_is_the_reference():
     i1 = np.arange(n * n // 2)
     jb = JBlockTridiag(amg_knobs=dict(max_coarse_size=64,
                                       setup_backend="jax")).setup(jA, i1)
-    tb = H.BlockTridiag().setup(tA, i1, device="cpu")
+    tb = H.BlockTridiag(amg_knobs=dict(max_coarse_size=64,
+                                       setup_backend="jax")).setup(
+        tA, i1, device="cpu")
     for name in ("A11", "A21", "A22"):
         same_csr(ell_to_csr(getattr(tb, name)),
                  j_ell_to_csr(getattr(jb, name)))

@@ -3,9 +3,8 @@
 - Every case of ``tests/test_drivers.py``'s IJ_GOLDEN (imported, so that
   the list stays single) gives the golden's iterations exactly and a
   final residual within 1.2x of it, as ``test/runtest.sh`` compares. The
-  goldens of the AMG ids came from the reference's C++ setup; the port's
-  pure setup reaches every one. The ``-agg_nl`` case needs the C++ setup
-  (ROADMAP.md Queue 1 item 15) and raises.
+  goldens of the AMG ids came from the reference's C++ setup, which the
+  port's AMG ids take too (BoomerAMG's default), ``-agg_nl`` included.
 - Ids and flags the goldens do not cover (the FSAI and Schwarz level
   smoothers, ParaSails, MGR, CGNR, LGMRES, FlexGMRES, -rhsrand,
   -fromfile) take the reference driver's iterations, and the -poutdat
@@ -50,10 +49,6 @@ def run_reference(flags):
 @pytest.mark.parametrize("flags,iters,rel", IJ_GOLDEN,
                          ids=[c[0] for c in IJ_GOLDEN])
 def test_ij_driver_golden(flags, iters, rel):
-    if "-agg_nl" in flags.split():
-        with pytest.raises(NotImplementedError, match="item 15"):
-            run_port(flags)
-        return
     got_it, got_rel, _ = run_port(flags)
     assert got_it == iters, f"iterations {got_it} != golden {iters}"
     assert got_rel <= rel * 1.2 + 1e-16

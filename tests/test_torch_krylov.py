@@ -140,7 +140,8 @@ def test_amg_pcg_takes_the_reference_iterations(problem):
     jA, tA, b = problem
     ja = JBoomerAMG(max_coarse_size=100, setup_backend="jax").setup(jA)
     jx, ji = j_pcg(jA.mv, jnp.asarray(b), M=ja.precond(), rtol=1e-8)
-    ta = H.BoomerAMG(max_coarse_size=100).setup(tA, device="cpu")
+    ta = H.BoomerAMG(max_coarse_size=100, setup_backend="jax").setup(
+        tA, device="cpu")
     tx, ti = H.pcg(tA.mv, torch.from_numpy(b), M=ta.precond(), rtol=1e-8,
                    device="cpu")
     assert [lv.A.n_rows for lv in ta.hierarchy.levels] == \

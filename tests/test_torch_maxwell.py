@@ -48,6 +48,7 @@ from torch_one_thread import one_torch_thread  # noqa: F401
 
 F64 = dict(dtype=torch.float64, device="cpu")
 J_KNOBS = dict(max_coarse_size=64, setup_backend="jax")
+T_KNOBS = J_KNOBS  # the port's inner BoomerAMGs, held against those
 
 
 def rel_close(a, b, rtol):
@@ -123,7 +124,7 @@ def ams_2d():
     jA, jG, xy = _curl_curl_2d(10, 10, beta=0.01)
     tA, tG, _ = maxwell.curl_curl_2d(10, 10, beta=0.01, **F64)
     ja = j_ams.AMS(amg_knobs=J_KNOBS).setup(jA, jG, xy)
-    ta = AMS().setup(tA, tG, xy, device="cpu")
+    ta = AMS(amg_knobs=T_KNOBS).setup(tA, tG, xy, device="cpu")
     return jA, jG, tA, tG, ja, ta
 
 
@@ -162,7 +163,7 @@ def ads_3d():
     tA, tC, tG, _ = maxwell.div_div_3d(4, **F64)
     return (jA, jC, jG, tA, tC, tG, xyz,
             JADS(amg_knobs=J_KNOBS).setup(jA, jC, jG, xyz),
-            ADS().setup(tA, tC, tG, xyz, device="cpu"))
+            ADS(amg_knobs=T_KNOBS).setup(tA, tC, tG, xyz, device="cpu"))
 
 
 def test_ads_face_weights_normals_and_pi_match(ads_3d):
@@ -248,8 +249,8 @@ def test_ame_eigenvalues_match_on_both_paths(dtype):
     je = JAME(block_size=m, tol=tol, maxiter=maxiter,
               ams=j_ams.AMS(amg_knobs=J_KNOBS)).setup(jA, jG, xy)
     jl, _, _ = je.solve(seed=3)
-    te = AME(block_size=m, tol=tol, maxiter=maxiter).setup(tA, tG, xy,
-                                                           device="cpu")
+    te = AME(block_size=m, tol=tol, maxiter=maxiter,
+             ams=AMS(amg_knobs=T_KNOBS)).setup(tA, tG, xy, device="cpu")
     tl, tX, trn = te.solve(seed=3)
     assert rel_close(np.sort(tl.numpy()), np.sort(np.asarray(jl)), 1e-6)
     assert trn.shape == (m,) and bool(torch.isfinite(trn).all())

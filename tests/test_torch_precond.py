@@ -15,7 +15,7 @@ Laplacian at 24^2 and the 3-D at 8^3.
 
 No test runs the reference's Krylov solve with an ILU-family
 preconditioner (the reference's ILU solves are slow on the CPU). The
-saddle solvers' A11 BoomerAMG is the reference's pure setup
+saddle solvers' A11 BoomerAMG is the pure setup in both packages
 (``setup_backend="jax"``), and the reference's C++ SpGEMM (ILU(k)'s
 pattern, S_hat) is replaced by a numpy CSR product (monkeypatch).
 """
@@ -43,6 +43,7 @@ import hypre_tpu_torch as H
 import hypre_tpu_torch.precond as TP
 from hypre_tpu_torch.convert import saddle_from_numpy
 from hypre_tpu_torch.precond import common as t_common
+from hypre_tpu_torch.precond import saddle as t_saddle
 from hypre_tpu_torch.seq.ell import EllMatrix, ell_to_csr
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -387,7 +388,13 @@ def saddle():
     ts = saddle_from_numpy({k: None if getattr(js, k) is None else
                             mat_dict(getattr(js, k))
                             for k in ("A", "B", "Bt", "C")}, device="cpu")
-    return js, ju, jb, ts
+    # the port's A11 BoomerAMG takes the pure setup too, while the tests
+    # that hold it against the reference's run
+    tp = pytest.MonkeyPatch()
+    tp.setattr(t_saddle, "BoomerAMG",
+               functools.partial(H.BoomerAMG, setup_backend="jax"))
+    yield js, ju, jb, ts
+    tp.undo()
 
 
 def test_saddle_schur_hat_and_block_precond(saddle):

@@ -264,7 +264,8 @@ def test_ij_path_then_amg_pcg_then_refinement(no_native):
     tA = t_ij.assemble().get_object(dtype=torch.float64, device="cpu")
     jA = j_ij.assemble().get_object(dtype=jnp.float64)
     assert np.array_equal(ell_to_csr(tA).data, csr.data)
-    t_amg = H.BoomerAMG(max_coarse_size=50).setup(tA, device="cpu")
+    t_amg = H.BoomerAMG(max_coarse_size=50, setup_backend="jax").setup(
+        tA, device="cpu")
     j_amg = JBoomerAMG(max_coarse_size=50, setup_backend="jax").setup(jA)
     b = np.ones(n ** 3)
     tx, ti = H.pcg(tA.mv, torch.from_numpy(b), M=t_amg.precond(),

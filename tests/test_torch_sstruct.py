@@ -21,9 +21,9 @@ The same numpy inputs go through each reference function and its port:
 - ``maxwell_grad``: exact; FEM assembly with Dirichlet rows: 1e-12; the
   SStruct IO round trip, each package reading the other's files: exact.
 
-The reference's FAC is given BoomerAMG(setup_backend="jax") and a numpy
-SpGEMM in place of its C++ one (monkeypatch), so nothing here calls the
-reference's native library. One reference SysPFMG hierarchy is shared by
+Both packages' FAC are given BoomerAMG(setup_backend="jax"), and the
+reference's a numpy SpGEMM in place of its C++ one (monkeypatch), so
+nothing here calls the reference's native library. One reference SysPFMG hierarchy is shared by
 the module.
 """
 
@@ -51,6 +51,7 @@ from hypre_tpu.sstruct.split import SplitSolver as JSplit
 from hypre_tpu.struct import io as j_io
 from hypre_tpu.struct.matrix import struct_matvec as j_struct_matvec
 
+import hypre_tpu_torch as H
 from hypre_tpu_torch.convert import (
     ell_from_numpy, struct_from_numpy, sys_struct_from_numpy,
 )
@@ -348,7 +349,9 @@ def fac_pair(monkeypatch, nested):
                                               device="cpu")
     jf = j_fac.FAC(coarse_amg=JBoomerAMG(max_coarse_size=256,
                                          setup_backend="jax"))
-    return jf.setup(JA, jm, jp), fac.FAC().setup(A, m, p, device="cpu")
+    tf = fac.FAC(coarse_amg=H.BoomerAMG(max_coarse_size=256,
+                                        setup_backend="jax"))
+    return jf.setup(JA, jm, jp), tf.setup(A, m, p, device="cpu")
 
 
 def sorted_rows(csr):

@@ -346,7 +346,8 @@ def test_amg_pcg_with_transfer_dia_takes_the_reference_iterations(
             return dense_mv(self, x)
         used.append(self.D)
         return TDIA.dia_rows_plain(self.r_ptr, self.r_ids, self.r_vals,
-                                   self.offsets_static, x, self.n_cols)
+                                   self.offsets_static, x, self.n_rows,
+                                   self.n_cols, self.r_rows)
 
     monkeypatch.setattr(TDIA.DiaMatrix, "mv", rows_mv)
     x_rows, rinfo = solve()
