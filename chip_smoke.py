@@ -163,7 +163,25 @@ Phases (any failure exits non-zero before the last line is printed):
     float64 and float32: equal setup paths, levels, C-point counts,
     formats and iterations. Every phase prints the setup paths its
     BoomerAMG setups took (``setup_paths``).
-17. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+17. hypre's ParCSR layer (``parallel/``) with every shard on the card
+    (the local backend), 7-pt PAR_N^3: A partitioned into 2, 4 and 8
+    shards, ``par_spmv`` and ``par_spmv_t`` against ``A.mv``/``mv_t`` in
+    float32, the halo's ``exchange_bytes`` (8 shards: 8 * 2 * PAR_N^2 * 4),
+    device ms per product and per exchange beside kernel 2's on A; then
+    ``setup_hierarchy_par`` on 8 shards (seconds and RAP widths per
+    level) with the level sizes of ``setup_hierarchy_device`` on the same
+    A with each row in column order (the order the distributed setup sums
+    in), and PCG + ``amg_cycle`` (l1-Jacobi) on both to rtol
+    PAR_RTOL with equal iterations, a float64 true residual under
+    TRUE_RESIDUAL_LIMIT, warm ms, device kernels per iteration and the
+    device busy share; the default facade's hierarchy partitioned
+    (``partition_hierarchy``) under PCG with the facade's own iterations;
+    ``drivers.ij_mm`` jobs 1, 2, 4 and 5 at PAR_N^3 and ``-verify 1`` at
+    IJ_MM_VERIFY_N^3; and at N_PARITY^3 on 8 shards card against CPU: the
+    CF split, level sizes and iterations. The distributed products launch
+    none of the four kernels (checked: their counts stay 0 in the
+    distributed solves).
+18. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -449,6 +467,18 @@ NATIVE_SMALL_CASES = [
     ("default", {}), ("agg_num_levels=1", dict(agg_num_levels=1)),
     ("nongalerkin_tol", dict(nongalerkin_tol=NONGALERKIN_TOL)),
 ]
+# Phase 17: hypre's ParCSR layer on the local backend (every shard on the
+# one card): the distributed products at 2, 4 and 8 shards, the
+# distributed setup and PCG at PAR_SETUP_SHARDS, a partitioned facade
+# hierarchy, ij_mm, and card against CPU at N_PARITY^3
+PAR_N = N_MAIN
+PAR_SHARDS = (2, 4, 8)
+PAR_SETUP_SHARDS = 8
+PAR_MAX_COARSE = 1500
+PAR_RTOL = 1e-6
+PAR_SPMV_RTOL = 1e-6  # against A.mv in float32, relative to max |y|
+IJ_MM_JOBS = (1, 2, 4, 5)
+IJ_MM_VERIFY_N = N_PARITY
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -3729,6 +3759,282 @@ def native_card_vs_cpu(H, kernels, torch):
                         f"{tag}: {key} differ between card and CPU")
 
 
+def device_profile_counts(torch, fn, warm_s: float):
+    """One call of fn under torch.profiler: the CUDA kernels it ran, their
+    device ms, and the device busy share (device ms over ``warm_s``, the
+    host wall time of an unprofiled warm call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count, dev_ms = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        count += e.count
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        dev_ms += us / 1e3
+    return count, dev_ms, dev_ms / (warm_s * 1e3)
+
+
+def par_products(H, kernels, torch):
+    """Phase 17 (a): the 7-pt PAR_N^3 operator (float32) partitioned into
+    each of PAR_SHARDS, ``par_spmv``/``par_spmv_t`` against ``A.mv``/
+    ``mv_t``, the halo bytes, and the device ms of a product, of a
+    transpose product and of an exchange alone beside kernel 2's on A."""
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import (
+        distribute_vector, exchange, par_spmv, par_spmv_t,
+    )
+    from hypre_tpu_torch.seq import dia as dia_mod
+
+    n = PAR_N
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float32, device="cuda")
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        A.n_rows)).to("cuda", torch.float32)
+    y_ref, yt_ref = A.mv(x), A.mv_t(x)
+    D = dia_mod.try_dia(A)
+    offs = tuple(D.offsets.tolist())
+    k2_ms = uncounted(kernels, lambda: time_ms(
+        lambda: dia_mod.dia_spmv_static(D.dvals, offs, x, D.n_cols), torch))
+    nbytes = (D.dvals.numel() + 2 * A.n_rows) * 4
+    k2_bound, _ = bound(nbytes, 2 * D.dvals.numel(), "float32")
+    for P in PAR_SHARDS:
+        mesh = make_mesh(P, device="cuda")
+        Ap, part_s = synced(torch, lambda: partition_ell(A, mesh))
+        xd = distribute_vector(x, mesh)
+        before = dict(kernels.LAUNCHES)
+        y = par_spmv(Ap, xd)[: A.n_rows]
+        yt = par_spmv_t(Ap, xd)[: A.n_cols]
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES == before,
+                f"{P} shards: a distributed product launched a kernel")
+        err = float((y - y_ref).abs().max() / y_ref.abs().max())
+        err_t = float((yt - yt_ref).abs().max() / yt_ref.abs().max())
+        send = xd[Ap.send_index]
+        rec = {"parallel": "products", "shards": P, "n": A.n_rows,
+               "partition_s": part_s, "offsets": list(Ap.offsets),
+               "halo_sizes": list(Ap.sizes),
+               "exchange_bytes": Ap.exchange_bytes(),
+               "rel_err_spmv": err, "rel_err_spmv_t": err_t,
+               "par_spmv_ms": time_ms(lambda: par_spmv(Ap, xd), torch),
+               "par_spmv_t_ms": time_ms(lambda: par_spmv_t(Ap, xd), torch),
+               "exchange_ms": time_ms(lambda: exchange(
+                   mesh, send, Ap.offsets, Ap.sizes), torch),
+               "kernel2_ms": k2_ms, "kernel2_bound_ms": k2_bound}
+        log(json.dumps(rec))
+        require(err <= PAR_SPMV_RTOL and err_t <= PAR_SPMV_RTOL,
+                f"{P} shards: par_spmv off A.mv by {err}, par_spmv_t by "
+                f"{err_t}")
+        if P == 8:
+            require(Ap.exchange_bytes() == 8 * 2 * n * n * 4,
+                    f"8 shards move {Ap.exchange_bytes()} bytes an "
+                    f"exchange, not 8 * 2 * {n}^2 * 4")
+        del Ap, xd, send
+    torch.cuda.empty_cache()
+
+
+def column_ordered(H, torch, A):
+    """A with each row's slots in column order, padding last: the order
+    ``setup_hierarchy_par`` keeps its rows in, so that the single-device
+    setup on it adds the same terms in the same order."""
+    key = torch.where(A.cols >= 0, A.cols, torch.full_like(A.cols, 2**30))
+    _, order = torch.sort(key, dim=1, stable=True)
+    return H.EllMatrix(vals=torch.gather(A.vals, 1, order),
+                       cols=torch.gather(A.cols, 1, order), n_cols=A.n_cols)
+
+
+def par_setup_solve(H, kernels, torch):
+    """Phase 17 (b), (c): setup_hierarchy_par on PAR_SETUP_SHARDS shards
+    of the PAR_N^3 operator (float32), its level sizes against
+    setup_hierarchy_device's on the same A in column order (unpadded), and
+    PCG + amg_cycle (l1-Jacobi) on both: equal iterations."""
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import distribute_vector
+    from hypre_tpu_torch.parallel.par_setup import setup_hierarchy_par
+
+    n = PAR_N
+    dt = torch.float32
+    A = H.laplacian_3d_7pt(n, n, n, dtype=dt, device="cuda")
+    A64 = f64_of(A)
+    mesh = make_mesh(PAR_SETUP_SHARDS, device="cuda")
+    Ap = partition_ell(A, mesh)
+    stats = []
+    hier, setup_s = synced(torch, lambda: setup_hierarchy_par(
+        Ap, max_coarse_size=PAR_MAX_COARSE, level_stats=stats))
+    sizes = [lv.A.n_rows for lv in hier.levels] + [hier.levels[-1].P.n_cols]
+    ref, ref_s = synced(torch, lambda: H.setup_hierarchy_device(
+        column_ordered(H, torch, A), max_coarse_size=PAR_MAX_COARSE,
+        device="cuda"))
+    log(json.dumps({"parallel": "setup", "shards": PAR_SETUP_SHARDS,
+                    "setup_s": setup_s, "levels": sizes, "per_level": stats,
+                    "device_setup_s": ref_s,
+                    "device_setup_levels": list(ref.n_level_true)}))
+    require(sizes == list(ref.n_level_true),
+            f"distributed levels {sizes} != single-device "
+            f"{list(ref.n_level_true)}")
+    ref = H.unpad_hierarchy(ref)
+    sm = H.make_smoother("l1-jacobi", 1.0, 2, 0.3)
+    b = torch.ones(A.n_rows, dtype=dt, device="cuda")
+    bd = distribute_vector(b, mesh)
+
+    def dist_solve():
+        return H.pcg(hier.levels[0].A.mv, bd,
+                     M=lambda r: H.amg_cycle(hier, r, smoother=sm),
+                     rtol=PAR_RTOL, maxiter=100, device="cuda")
+
+    (x, info), warm_ms, grew = timed(kernels, torch, dist_solve)
+    require(not any(grew.values()),
+            f"the distributed solve launched ported kernels: {grew}")
+    count, dev_ms, busy = device_profile_counts(torch, dist_solve,
+                                                warm_ms / 1e3)
+    it = max(int(info.iterations), 1)
+    check_solve(f"parallel pcg {n}^3 {PAR_SETUP_SHARDS} shards", torch,
+                x[: A.n_rows], info, A64, b, warm_ms, grew, extra={
+                    "device_kernels_per_iteration": count / it,
+                    "device_ms": dev_ms, "busy_share": busy})
+    (x1, info1), warm1, grew1 = timed(kernels, torch, lambda: H.pcg(
+        ref.levels[0].A.mv, b, M=lambda r: H.amg_cycle(ref, r, smoother=sm),
+        rtol=PAR_RTOL, maxiter=100, device="cuda"))
+    check_solve(f"single-device pcg {n}^3 (the device setup)", torch, x1,
+                info1, A64, b, warm1, grew1)
+    require(int(info.iterations) == int(info1.iterations),
+            f"distributed PCG took {int(info.iterations)} iterations, "
+            f"single-device {int(info1.iterations)}")
+    del hier, ref, Ap, A, x, x1
+    torch.cuda.empty_cache()
+
+
+def par_facade(H, kernels, torch):
+    """Phase 17 (d): the default facade's (host C++) hierarchy at PAR_N^3
+    float32, its ELL payload partitioned over PAR_SETUP_SHARDS shards,
+    under PCG with the facade's smoother: the facade's own iterations."""
+    from hypre_tpu_torch.parallel import make_mesh
+    from hypre_tpu_torch.parallel.par_amg import partition_hierarchy
+    from hypre_tpu_torch.parallel.par_ell import distribute_vector
+
+    n = PAR_N
+    A = H.laplacian_3d_7pt(n, n, n, dtype=torch.float32, device="cuda")
+    A64 = f64_of(A)
+    amg, setup_s = synced(torch, lambda: H.BoomerAMG(
+        max_coarse_size=PAR_MAX_COARSE).setup(A))
+    require(amg.setup_path == "native",
+            f"the default facade took the {amg.setup_path!r} setup")
+    mesh = make_mesh(PAR_SETUP_SHARDS, device="cuda")
+    part, part_s = synced(torch, lambda: partition_hierarchy(
+        amg.ell_hierarchy, mesh))
+    b = torch.ones(A.n_rows, dtype=torch.float32, device="cuda")
+    bd = distribute_vector(b, mesh)
+    (x, info), warm_ms, grew = timed(kernels, torch, lambda: H.pcg(
+        part.levels[0].A.mv, bd,
+        M=lambda r: H.amg_cycle(part, r, smoother=amg._smoother),
+        rtol=PAR_RTOL, maxiter=100, device="cuda"))
+    require(not any(grew.values()),
+            f"the partitioned solve launched ported kernels: {grew}")
+    check_solve(f"partitioned facade pcg {n}^3", torch, x[: A.n_rows], info,
+                A64, b, warm_ms, grew, extra={
+                    "setup_s": setup_s, "partition_s": part_s,
+                    "levels": level_sizes(amg.hierarchy)})
+    op = amg.hierarchy.levels[0].A
+    (x1, info1), warm1, grew1 = timed(kernels, torch, lambda: H.pcg(
+        op.mv, b, M=amg.precond(), rtol=PAR_RTOL, maxiter=100,
+        device="cuda"))
+    check_solve(f"facade pcg {n}^3 (unpartitioned)", torch, x1, info1, A64,
+                b, warm1, grew1, need=("dia_spmv", "banded_spmv",
+                                       "banded_spmv_t"))
+    require(int(info.iterations) == int(info1.iterations),
+            f"partitioned facade took {int(info.iterations)} iterations, "
+            f"unpartitioned {int(info1.iterations)}")
+    del amg, part, op, x, x1
+    torch.cuda.empty_cache()
+
+
+def par_ij_mm(torch):
+    """Phase 17 (e): ij_mm jobs IJ_MM_JOBS on the 7-pt PAR_N^3 (float32),
+    and -verify 1 against the host C++ oracle at IJ_MM_VERIFY_N^3."""
+    import contextlib
+    import io
+
+    from hypre_tpu_torch.drivers import ij_mm
+
+    n, m = PAR_N, IJ_MM_VERIFY_N
+    runs = [(f"-n {n} {n} {n} -7pt -job {j}", False) for j in IJ_MM_JOBS]
+    runs += [(f"-n {m} {m} {m} -7pt -job {j} -verify 1", True)
+             for j in IJ_MM_JOBS]
+    for flags, verify in runs:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            dt = ij_mm.run(flags.split(), device="cuda")
+        text = out.getvalue().strip()
+        log(text)
+        log(json.dumps({"ij_mm": flags, "seconds_per_product": dt,
+                        "run_s": time.perf_counter() - t0}))
+        require(not verify or "verify: passed" in text,
+                f"ij_mm {flags}: {text}")
+
+
+def parallel_phase(H, kernels, torch):
+    """Phase 17: hypre's ParCSR layer on the card (the local backend)."""
+    kernels.reset_launches()
+    for part, fn in (("products", lambda: par_products(H, kernels, torch)),
+                     ("setup_solve", lambda: par_setup_solve(H, kernels,
+                                                            torch)),
+                     ("facade", lambda: par_facade(H, kernels, torch)),
+                     ("ij_mm", lambda: par_ij_mm(torch))):
+        t0 = time.perf_counter()
+        fn()
+        log(json.dumps({"phase": "parallel_phase", "part": part,
+                        "seconds": time.perf_counter() - t0}))
+    return dict(kernels.LAUNCHES)
+
+
+def parallel_card_vs_cpu(H, torch):
+    """Phase 17 (f): the distributed split, setup and PCG at N_PARITY^3 on
+    PAR_SETUP_SHARDS shards, on the card and on the CPU, in float64 and
+    float32: the same CF splitting, level sizes and iterations."""
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import distribute_vector
+    from hypre_tpu_torch.parallel.par_setup import (
+        par_split_phase, setup_hierarchy_par,
+    )
+
+    n = N_PARITY
+    sm = H.make_smoother("l1-jacobi", 1.0, 2, 0.3)
+    for dtype, rtol in ((torch.float64, 1e-8), (torch.float32, PAR_RTOL)):
+        out, cfs = {}, {}
+        for device in ("cuda", "cpu"):
+            A = H.laplacian_3d_7pt(n, n, n, dtype=dtype, device=device)
+            mesh = make_mesh(PAR_SETUP_SHARDS, device=device)
+            Ap = partition_ell(A, mesh)
+            cfs[device] = par_split_phase(Ap, 0.25, 12)[2].cpu()
+            hier = setup_hierarchy_par(Ap, max_coarse_size=100)
+            b = distribute_vector(torch.ones(A.n_rows, dtype=dtype,
+                                             device=device), mesh)
+            _, info = H.pcg(Ap.mv, b,
+                            M=lambda r: H.amg_cycle(hier, r, smoother=sm),
+                            rtol=rtol, maxiter=100, device=device)
+            out[device] = {
+                "levels": [lv.A.n_rows for lv in hier.levels]
+                + [hier.levels[-1].P.n_cols],
+                "c_points": int((cfs[device] == 1).sum()),
+                "iterations": int(info.iterations),
+                "converged": bool(info.converged)}
+        tag = f"parallel {n}^3 {str(dtype).split('.')[1]}"
+        log(json.dumps({"card_vs_cpu": tag, **out}))
+        require(out["cuda"]["converged"] and out["cpu"]["converged"],
+                f"{tag}: a solve did not converge")
+        require(torch.equal(cfs["cuda"], cfs["cpu"]),
+                f"{tag}: the CF splits differ")
+        for key in ("levels", "iterations"):
+            require(out["cuda"][key] == out["cpu"][key],
+                    f"{tag}: {key} differ between card and CPU")
+
+
 def main() -> int:
     import torch
 
@@ -3858,6 +4164,13 @@ def main() -> int:
     t0 = time.perf_counter()
     native_card_vs_cpu(H, kernels, torch)
     phase_done("native_card_vs_cpu", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_phases.append(parallel_phase(H, kernels, torch))
+    phase_done("parallel_phase", t0)
+    t0 = time.perf_counter()
+    parallel_card_vs_cpu(H, torch)
+    phase_done("parallel_card_vs_cpu", t0)
     log(json.dumps({"run_seconds": time.perf_counter() - t_run}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

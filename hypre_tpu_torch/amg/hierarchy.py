@@ -201,26 +201,20 @@ def resolve_setup_backend(setup_backend: str, interp: str = "ext+i",
     family, ext+i or direct, no Jacobi-improved interpolation, Galerkin
     restriction) and its library builds, else 'jax', as the reference's
     rule does (``hypre_tpu/amg/hierarchy.py:191-206``); aggressive and
-    non-Galerkin coarsening outside that raise. An explicit 'native' whose
-    knobs it does not cover raises (the reference would substitute ext+i
-    and RS silently), and so does one whose library does not build."""
+    non-Galerkin coarsening outside that raise. An explicit 'native' runs
+    whatever was asked, as the reference's does: ext+i for any
+    interpolation but direct, the RS pass for any coarsening but PMIS
+    (HMIS adds its cleanup), Galerkin restriction and no Jacobi passes;
+    it raises when its library does not build."""
     if setup_backend not in ("auto", "jax", "native", "device"):
         raise ValueError(f"unknown setup backend: {setup_backend!r}")
     if setup_backend not in ("auto", "native"):
         return setup_backend
-    covered = (interp in NATIVE_INTERPS and coarsen in NATIVE_COARSENINGS
-               and interp_jacobi_passes == 0 and restrict_type == "transpose")
     if setup_backend == "native":
-        if not covered:
-            raise ValueError(
-                "the native setup covers coarsen in "
-                f"{NATIVE_COARSENINGS}, interp in {NATIVE_INTERPS}, no "
-                "interp_jacobi_passes and restrict_type='transpose' (got "
-                f"coarsen={coarsen!r}, interp={interp!r}, "
-                f"interp_jacobi_passes={interp_jacobi_passes}, "
-                f"restrict_type={restrict_type!r})")
         native.build()  # raises with g++'s output
         return "native"
+    covered = (interp in NATIVE_INTERPS and coarsen in NATIVE_COARSENINGS
+               and interp_jacobi_passes == 0 and restrict_type == "transpose")
     covered = covered and native.available()
     if nongalerkin_tol > 0 and not covered:
         raise ValueError("nongalerkin_tol requires the native setup path")

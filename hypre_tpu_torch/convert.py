@@ -12,6 +12,9 @@ StructMatrix (one operator, or each level of a struct hierarchy), and
 comes across as its parts and its U, through ``struct_from_numpy`` and
 ``ell_from_numpy``). All
 place the result on ``device`` (CUDA unless the caller names another).
+``par_ell_from_numpy`` and ``par_hierarchy_from_numpy`` take a
+distributed matrix or a partitioned hierarchy as the reference's global
+arrays and place them on a shard mesh.
 """
 
 from __future__ import annotations
@@ -134,6 +137,60 @@ def hierarchy_from_numpy(d: dict, device=None) -> AMGHierarchy:
         galerkin=bool(d.get("galerkin", True)),
         n_fine=int(d.get("n_fine", 0)),
         n_level_true=tuple(int(v) for v in d.get("n_level_true", ())))
+
+
+def par_ell_from_numpy(d: dict, mesh):
+    """ParEllMatrix on ``mesh`` from the reference's global arrays:
+
+        {"diag_vals", "diag_cols", "offd_vals", "offd_cols": (n_padded, k)
+         arrays (offd columns are halo-buffer positions), "send_idx":
+         (P, M), "offsets", "sizes": tuples, "n_rows", "n_cols": ints}
+
+    ``mesh.num_shards`` must be the P the arrays were partitioned for;
+    this process keeps its own shards."""
+    from hypre_tpu_torch.parallel.mesh import row_sharding
+    from hypre_tpu_torch.parallel.par_ell import ParEllMatrix
+
+    send_idx = np.asarray(d["send_idx"])
+    if send_idx.shape[0] != mesh.num_shards:
+        raise ValueError(f"arrays for {send_idx.shape[0]} shards, mesh has "
+                         f"{mesh.num_shards}")
+    rows = row_sharding(mesh)
+    return ParEllMatrix(
+        diag_vals=rows.put(np.asarray(d["diag_vals"])),
+        diag_cols=rows.put(np.asarray(d["diag_cols"], np.int32)),
+        offd_vals=rows.put(np.asarray(d["offd_vals"])),
+        offd_cols=rows.put(np.asarray(d["offd_cols"], np.int32)),
+        send_idx=rows.put(send_idx.astype(np.int32)).reshape(
+            mesh.local_shards, -1),
+        n_rows=int(d["n_rows"]), n_cols=int(d["n_cols"]),
+        offsets=tuple(int(o) for o in d["offsets"]),
+        sizes=tuple(int(m) for m in d["sizes"]), mesh=mesh)
+
+
+def par_hierarchy_from_numpy(d: dict, mesh) -> AMGHierarchy:
+    """A partitioned AMGHierarchy on ``mesh`` from a dict of numpy arrays:
+    ``hierarchy_from_numpy``'s layout with each level's "A", "P" and "Pt"
+    a ``par_ell_from_numpy`` dict, "dinv" and "l1inv" global padded
+    vectors, and "coarse_inv" the padded replicated inverse."""
+    from hypre_tpu_torch.parallel.mesh import (
+        replicated_sharding, row_sharding,
+    )
+
+    def vec(a):
+        return row_sharding(mesh).put(np.asarray(a)).reshape(-1)
+
+    levels = [Level(
+        A=par_ell_from_numpy(lv["A"], mesh),
+        P=par_ell_from_numpy(lv["P"], mesh),
+        Pt=par_ell_from_numpy(lv["Pt"], mesh),
+        dinv=vec(lv["dinv"]), l1inv=vec(lv["l1inv"]),
+        lmax=_tensor(lv["lmax"], mesh.device),
+    ) for lv in d["levels"]]
+    return AMGHierarchy(
+        levels=levels,
+        coarse_inv=replicated_sharding(mesh).put(np.asarray(d["coarse_inv"])),
+        galerkin=bool(d.get("galerkin", True)))
 
 
 def saddle_from_numpy(d: dict, device=None):

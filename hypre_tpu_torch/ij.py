@@ -108,10 +108,13 @@ class IJMatrix:
         return csr_to_ell(self.get_csr(), k=k, dtype=dtype, device=device)
 
     def get_par_object(self, mesh, dtype=None):
-        """Distributed variant: partition over a device mesh."""
-        raise NotImplementedError(
-            "IJMatrix.get_par_object needs the parallel layer's ParEllMatrix "
-            "(ROADMAP.md Queue 1 item 15), which is not ported yet")
+        """Distributed variant: the assembled matrix partitioned over a
+        shard mesh (``parallel.make_mesh``), as a ParEllMatrix on the
+        mesh's device."""
+        from hypre_tpu_torch.parallel.par_ell import partition_ell
+
+        return partition_ell(self.get_object(dtype=dtype, device="cpu"),
+                             mesh)
 
 
 @dataclasses.dataclass

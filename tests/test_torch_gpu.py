@@ -888,3 +888,77 @@ def test_sstruct_driver_on_card_equals_cpu(flags):
             got[dev] = drv.run(flags.split(), device=dev,
                                dtype=torch.float64)[0]
     assert got["cuda"] == got["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 8])
+def test_par_spmv_on_card(shards):
+    """The distributed products with every shard on the card (the local
+    backend): against A.mv / A.mv_t, no ported kernel launched, and the
+    card's float64 results equal to the CPU's to rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import (
+        collect_vector, distribute_vector, par_spmv, par_spmv_t,
+    )
+
+    rng = np.random.default_rng(12)
+    got = {}
+    for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        x_host = rng.standard_normal(20 * 21 * 23)
+        for dev in ("cuda", "cpu"):
+            A = laplacian_3d_7pt(20, 21, 23, dtype=dtype, device=dev)
+            x = torch.from_numpy(x_host).to(dev, dtype)
+            mesh = make_mesh(shards, device=dev)
+            P = partition_ell(A, mesh)
+            before = dict(kernels.LAUNCHES)
+            xd = distribute_vector(x, mesh)
+            y = collect_vector(par_spmv(P, xd), A.n_rows)
+            yt = collect_vector(par_spmv_t(P, xd), A.n_cols)
+            assert dict(kernels.LAUNCHES) == before
+            assert close(y, A.mv(x).cpu(), tol)
+            assert close(yt, A.mv_t(x).cpu(), tol)
+            got[dev] = (y, yt)
+        if dtype == torch.float64:
+            for a, b in zip(got["cuda"], got["cpu"]):
+                assert close(a, b, 1e-14)
+
+
+@pytest.mark.gpu
+def test_par_setup_pcg_on_card():
+    """setup_hierarchy_par on 8 shards of the 16^3 Laplacian on the card,
+    float64: the CPU's levels and CF split, and PCG with the CPU's
+    iterations and those of the single-device device setup."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import distribute_vector
+    from hypre_tpu_torch.parallel.par_setup import setup_hierarchy_par
+
+    sm = H.make_smoother("l1-jacobi", 1.0, 2, 0.3)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        A = laplacian_3d_7pt(16, 16, 16, dtype=torch.float64, device=dev)
+        mesh = make_mesh(8, device=dev)
+        hier = setup_hierarchy_par(partition_ell(A, mesh),
+                                   max_coarse_size=100)
+        b = distribute_vector(torch.ones(A.n_rows, dtype=torch.float64,
+                                         device=dev), mesh)
+        _, info = H.pcg(hier.levels[0].A.mv, b,
+                        M=lambda r: H.amg_cycle(hier, r, smoother=sm),
+                        rtol=1e-8, maxiter=60, device=dev)
+        assert bool(info.converged)
+        got[dev] = ([lv.A.n_rows for lv in hier.levels],
+                    int(info.iterations))
+        if dev == "cuda":
+            ref = H.unpad_hierarchy(H.setup_hierarchy_device(
+                dataclasses.replace(A, shifts=None), max_coarse_size=100,
+                device=dev))
+            _, info1 = H.pcg(A.mv, torch.ones(A.n_rows, dtype=torch.float64,
+                                              device=dev),
+                             M=lambda r: H.amg_cycle(ref, r, smoother=sm),
+                             rtol=1e-8, maxiter=60, device=dev)
+            assert int(info1.iterations) == int(info.iterations)
+            assert [lv.A.n_rows for lv in ref.levels] == got[dev][0]
+    assert got["cuda"] == got["cpu"]

@@ -119,9 +119,15 @@ def test_ij_vector_add_and_dtype():
 
 
 def test_get_par_object_names_the_parallel_layer():
-    m = H.IJMatrix(2, 2).set_values([0, 1], [0, 1], [1.0, 1.0]).assemble()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        m.get_par_object(mesh=None)
+    # the parallel layer's ParEllMatrix, split over the mesh's shards
+    from hypre_tpu_torch.parallel import ParEllMatrix, make_mesh
+
+    m = H.IJMatrix(2, 2).set_values([0, 1], [0, 1], [1.0, 4.0]).assemble()
+    P = m.get_par_object(make_mesh(2, device="cpu"), dtype=torch.float64)
+    assert isinstance(P, ParEllMatrix)
+    assert (P.num_shards, P.n_rows, P.n_cols) == (2, 2, 2)
+    y = P.mv(torch.tensor([3.0, 0.5], dtype=torch.float64))
+    assert y.tolist() == [3.0, 2.0]
 
 
 def test_get_csr_before_assemble_raises():

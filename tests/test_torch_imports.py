@@ -1,7 +1,7 @@
 """hypre_tpu_torch stands alone: it imports neither JAX nor hypre_tpu,
 nor scipy (which only fem_stiffness_2d imports, inside the call), builds
-nothing at import time, and chip_smoke.py refuses to run without a
-card."""
+nothing and joins no process group at import time, and chip_smoke.py
+refuses to run without a card."""
 
 import os
 import re
@@ -55,6 +55,16 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.sstruct.syspfmg\n"
         "import hypre_tpu_torch.sstruct.maxwell, hypre_tpu_torch.fei\n"
         "import hypre_tpu_torch.drivers.sstruct\n"
+        "import hypre_tpu_torch.parallel, hypre_tpu_torch.parallel.comm\n"
+        "import hypre_tpu_torch.parallel.mesh, hypre_tpu_torch.parallel.halo\n"
+        "import hypre_tpu_torch.parallel.par_ell\n"
+        "import hypre_tpu_torch.parallel.par_amg\n"
+        "import hypre_tpu_torch.parallel.par_setup\n"
+        "import hypre_tpu_torch.parallel.multihost\n"
+        "import hypre_tpu_torch.core.partition, hypre_tpu_torch.core.timing\n"
+        "import hypre_tpu_torch.matrix_facade, hypre_tpu_torch.drivers.ij_mm\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'hypre_tpu', 'scipy')]\n"
         "assert not bad, bad\n"
@@ -84,11 +94,16 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "probe.py", "semi.py", "relax.py", "cycred.py", "jacobi.py",
             "pfmg.py", "smg.py", "sparse_msg.py",
             "struct_problems.py", "grid.py", "split.py", "syspfmg.py",
-            "fac.py", "fem.py", "fei.py"} <= names
+            "fac.py", "fem.py", "fei.py", "partition.py", "timing.py",
+            "matrix_facade.py", "ij_mm.py", "comm.py", "mesh.py", "halo.py",
+            "par_ell.py", "par_amg.py", "par_setup.py",
+            "multihost.py"} <= names
     for rel in ("drivers/ij.py", "drivers/struct.py", "struct/hybrid.py",
                 "struct/io.py", "struct/__init__.py", "drivers/sstruct.py",
                 "sstruct/__init__.py", "sstruct/matrix.py",
-                "sstruct/maxwell.py", "fei.py"):
+                "sstruct/maxwell.py", "fei.py", "parallel/__init__.py",
+                "parallel/mesh.py", "core/partition.py", "core/timing.py",
+                "drivers/ij_mm.py"):
         assert ROOT / "hypre_tpu_torch" / rel in PORT_FILES
     for path in PORT_FILES:
         text = path.read_text()

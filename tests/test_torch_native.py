@@ -172,10 +172,16 @@ def test_auto_rule_and_what_native_refuses(problem, monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="nongalerkin"):
         H.setup_hierarchy(tA, restrict_type="air", nongalerkin_tol=0.1,
                           device="cpu")
-    # an explicit 'native' whose knobs it does not cover raises
-    with pytest.raises(ValueError, match="native setup covers"):
-        H.setup_hierarchy(tA, setup_backend="native", coarsen="cljp",
-                          device="cpu")
+    # an explicit 'native' whose knobs it does not cover runs as the
+    # reference's does (RS for cljp, ext+i for multipass): both packages
+    # give the same hierarchy at 24^3
+    knobs = dict(setup_backend="native", coarsen="cljp", interp="multipass")
+    th = H.setup_hierarchy(
+        H.laplacian_3d_7pt(24, 24, 24, dtype=torch.float64, device="cpu"),
+        device="cpu", **knobs)
+    assert len(th.levels) >= 2
+    assert_same_hierarchy(th, j_hier.setup_hierarchy(j_lap7(24, 24, 24),
+                                                     **knobs))
     # a library that does not build: 'native' raises with g++'s output,
     # 'auto' takes the pure setup
     bad = tmp_path / "broken.cpp"

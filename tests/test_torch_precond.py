@@ -425,6 +425,35 @@ def test_uzawa_takes_the_reference_iterations(saddle):
     assert rel_close(tu_u, ju_u, 1e-8) and rel_close(tu_p, ju_p, 1e-8)
 
 
+# The reference's Uzawa on make_saddle(48) (setup_backend="jax", float64,
+# f = 1, g = 0, omega 0.5, rtol 1e-7, maxiter 200), recorded: the run
+# costs ~15 s of one worker. Its A11 BoomerAMG has two levels there (2304
+# rows, an 846-row coarse inverse), so two V-cycles are no longer a direct
+# solve, and the iteration stalls.
+UZAWA_48_REFERENCE = dict(iterations=200, converged=False,
+                          relative_residual=0.036941173274281404)
+
+
+def test_uzawa_stalls_past_38_squared_as_the_reference_does(saddle):
+    """ROADMAP Queue 3's "Uzawa stalls past 38^2" is the reference's
+    behaviour: at 48^2 the port's Uzawa stalls where the reference's
+    does, at the same residual."""
+    js = make_saddle(48)
+    ts = saddle_from_numpy({k: None if getattr(js, k) is None else
+                            mat_dict(getattr(js, k))
+                            for k in ("A", "B", "Bt", "C")}, device="cpu")
+    tu = TP.Uzawa(omega=0.5, rtol=1e-7, maxiter=200).setup(ts, device="cpu")
+    assert len(tu.amg.hierarchy.levels) == 1
+    assert tu.amg.hierarchy.coarse_inv.shape == (846, 846)
+    _, _, ti = tu.solve(torch.ones(js.n_u, dtype=torch.float64),
+                        torch.zeros(js.n_p, dtype=torch.float64))
+    ref = UZAWA_48_REFERENCE
+    assert int(ti.iterations) == ref["iterations"]
+    assert bool(ti.converged) == ref["converged"]
+    assert abs(float(ti.relative_residual) - ref["relative_residual"]) \
+        <= 1e-6 * ref["relative_residual"]
+
+
 def test_schur_reduction_solve(saddle):
     """HYPRE_LSI_schur.cxx's reduced system: PCG on S p, then u."""
     js, _, jb, ts = saddle
