@@ -87,7 +87,8 @@ Phases (any failure exits non-zero before the last line is printed):
     ``SmoothedAggAMG`` and ``GSMG`` (max_coarse_size=1500) under PCG on
     the 7-pt 128^3; ``SmoothedAggAMG`` with the three rigid-body modes as
     its null space and nodal ``BlockAMG`` (``ell_to_bsr``) under PCG on
-    ``elasticity_2d(1024, 1024)``; ``BlockAMG`` on ``fem_block_2d(1024)``
+    ``elasticity_2d`` at N_ELASTICITY^2 (cut, see ELASTICITY_CUT);
+    ``BlockAMG`` on ``fem_block_2d(N_FEM_BLOCK)`` (cut, FEM_BLOCK_CUT)
     under FlexGMRES(30); ``AMS`` on the curl-curl + mass operator and
     ``ADS`` on the div-div + mass operator (lognormal coefficients) of the
     88^3 and N_ADS^3 (cut, see ADS_CUT) hex complexes under PCG (BlockAMG
@@ -181,7 +182,22 @@ Phases (any failure exits non-zero before the last line is printed):
     CF split, level sizes and iterations. The distributed products launch
     none of the four kernels (checked: their counts stay 0 in the
     distributed solves).
-18. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+18. hypre's distributed solvers with every shard on the card (the local
+    backend, DIST_SHARDS shards): on the 7-pt DIST_N^3 (float32, rtol
+    DIST_RTOL) PCG + Euclid (ParILU, ILU(0) and ILU(1)), GMRES(30) +
+    PILUT (ParILUT, float64), PCG + ParaSails (ParSails level 0) and
+    ParSails level 1; the ij driver's AMG-DD ids 90 and 91 at -n DIST_N^3
+    (float64); PFMG-PCG through the struct driver's PFMG placed over the
+    shards (``distribute_pfmg``: slabs with ghost planes, kernel 2 on the
+    stacked slabs) at STRUCT_N2D^2 and STRUCT_N3D^3, which must take the
+    unsharded iterations. Each prints its setup seconds, iterations, warm
+    ms, true residual and device kernels per iteration, and must converge
+    under TRUE_RESIDUAL_LIMIT; the ParCSR paths launch none of the four
+    kernels, the sharded struct paths must launch kernel 2, whose level-0
+    view is held against the plain version and timed. Then every path at
+    DIST_SMALL^3 (DIST_SMALL_2D^2 for the 2-D struct one) in float64 on
+    the card and on the CPU: equal iterations, x within DIST_X_TOL.
+19. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
@@ -190,6 +206,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -312,6 +329,19 @@ AUX_MAXITER = 1000
 N_ADS = 64
 ADS_CUT = ("ADS at 64^3: at 88^3 the path took 130-155 s on the H100 and "
            "the run with phase 13 920 s, over ~900")
+# The 2-D block problems' size in phase 12, cut from N_2D so that phase 18
+# fits under the run's limit: at 1024^2 on an NVIDIA H100 80GB HBM3 at
+# 700 W, SA with the rigid-body modes on elasticity took 97.0 s, BlockAMG
+# on it 22.5 s (f64) and BlockAMG on fem_block_2d 68.6 s of phase 12's
+# 342.7 s (the run 1085 s of 1200). A quarter of the rows keeps each
+# path, solver and format.
+N_ELASTICITY = 512
+ELASTICITY_CUT = ("elasticity_2d at 512^2: at 1024^2 its two paths took "
+                  "119.5 s of phase 12 on the H100 (SA 97.0, BlockAMG "
+                  "22.5); the run needs the time for phase 18")
+N_FEM_BLOCK = 512
+FEM_BLOCK_CUT = ("fem_block_2d(512): at 1024 the path took 68.6 s of "
+                 "phase 12 on the H100; the run needs the time for phase 18")
 AUX_SMALL = dict(n3d=20, n2d=48, fem_m=24, nhex=6, ads_hex=6, ame_hex=6)
 AUX_KERNELS = ("dia_spmv", "banded_spmv", "banded_spmv_t")
 # Phase 13: the ij driver's preconditioner ids and -smtype at N_MAIN^3,
@@ -479,6 +509,16 @@ PAR_RTOL = 1e-6
 PAR_SPMV_RTOL = 1e-6  # against A.mv in float32, relative to max |y|
 IJ_MM_JOBS = (1, 2, 4, 5)
 IJ_MM_VERIFY_N = N_PARITY
+# Phase 18: the distributed solvers with every shard on the card (the
+# local backend), the 7-pt DIST_N^3 (the struct paths at STRUCT_N2D^2 and
+# STRUCT_N3D^3), and the sizes at which they run card against CPU
+DIST_N = N_MAIN
+DIST_SHARDS = 8
+DIST_RTOL = 1e-6
+DIST_MAXITER = 1000
+DIST_SMALL = N_PARITY
+DIST_SMALL_2D = 64
+DIST_X_TOL = 1e-10
 SOURCES = {
     "dia_spmv": ("hypre_tpu_torch/csrc/dia_spmv.cu",
                  "hypre_tpu/seq/dia.py:350 (_dia_kernel)"),
@@ -2309,7 +2349,7 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
         if on_card:
             torch.cuda.empty_cache()
         if cb:
-            log(json.dumps({"aux_path": key,
+            log(json.dumps({"phase": "aux_phase", "part": key,
                             "seconds": time.perf_counter() - t0}))
 
     # smoothed aggregation and GSMG on the 7-pt Laplacian
@@ -2335,8 +2375,9 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
     amg, s = setup(lambda: H.SmoothedAggAMG(
         max_coarse_size=mcs, null_space=rigid_body_modes(
             n2d, n2d, torch, device)).setup(E, optimize=True, device=device))
+    cut = {"size": ELASTICITY_CUT} if cb and n2d == N_ELASTICITY else {}
     solve("sa_elasticity", f"sa rigid-body pcg elasticity {n2d}^2", E, op,
-          bE, amg.precond(), dict(aux_levels(amg), setup_s=s))
+          bE, amg.precond(), dict(aux_levels(amg), setup_s=s, **cut))
     del amg
     done("sa_elasticity", t0)
 
@@ -2350,7 +2391,8 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
     bam, s = setup(lambda: BlockAMG().setup(ell_to_bsr(E, 2),
                                             device=device))
     rec = {"levels": [lv.A.n_rows for lv in bam.levels]
-           + [bam.coarse_inv.shape[0]], "setup_s": s, "dtype": "float64"}
+           + [bam.coarse_inv.shape[0]], "setup_s": s, "dtype": "float64",
+           **cut}
     solve("block_amg", f"block_amg pcg elasticity {n2d}^2 f64", E,
           optimize_operator(E), manufactured_rhs(E, torch, 14),
           bam.precond(), rec, need=False)
@@ -2363,6 +2405,8 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
     bam, s = setup(lambda: BlockAMG().setup(ell_to_bsr(F, 2), device=device))
     rec = {"levels": [lv.A.n_rows for lv in bam.levels]
            + [bam.coarse_inv.shape[0]], "setup_s": s, "mesh_s": gen_s}
+    if cb and fem_m == N_FEM_BLOCK:
+        rec["size"] = FEM_BLOCK_CUT
     solve("block_amg_fem", f"block_amg fem_block_2d({fem_m})", F,
           optimize_operator(F), manufactured_rhs(F, torch, 16),
           bam.precond(), rec, solver="flexgmres" if cb else "gmres",
@@ -2444,8 +2488,8 @@ def aux_runs(H, torch, device, n3d: int, n2d: int, fem_m: int, nhex: int,
 def aux_phase(H, kernels, torch, held):
     """Phase 12: the slice's solvers at full width on the card."""
     kernels.reset_launches()
-    aux_runs(H, torch, "cuda", N_MAIN, N_2D, N_2D, N_HEX, N_ADS, N_AME, held,
-             kernels)
+    aux_runs(H, torch, "cuda", N_MAIN, N_ELASTICITY, N_FEM_BLOCK, N_HEX,
+             N_ADS, N_AME, held, kernels)
     return dict(kernels.LAUNCHES)
 
 
@@ -4035,6 +4079,249 @@ def parallel_card_vs_cpu(H, torch):
                     f"{tag}: {key} differ between card and CPU")
 
 
+def dist_sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_timed(torch, device, fn):
+    """(fn(), seconds) with the device synchronized on both sides."""
+    dist_sync(torch, device)
+    t0 = time.perf_counter()
+    out = fn()
+    dist_sync(torch, device)
+    return out, time.perf_counter() - t0
+
+
+def dist_solver_runs(H, torch, device, n: int, n2d: int, n3d: int, dtype,
+                     kernels=None, held=None, rows=None) -> dict:
+    """Phase 18's paths on ``device`` with DIST_SHARDS shards of the local
+    backend, at rtol DIST_RTOL (STRUCT_RTOL for PFMG): on the 7-pt n^3
+    operator PCG + Euclid (ILU(0), ILU(1): ParILU), GMRES(30) + PILUT
+    (ParILUT, in float64: the left-preconditioned GMRES floors in float32,
+    as phase 13's id 7), PCG + ParaSails (ParSails level 0) and ParSails
+    level 1; the ij driver's ids 90 and 91 (AMG-DD on four composite
+    grids, float64: 90 tests the true residual each cycle) at -n n n n;
+    PFMG-PCG through the struct driver's set-up PFMG placed over the
+    shards (``distribute_pfmg``) at n2d^2 (b = A x*) and n3d^3 (b = ones),
+    which must take the unsharded PFMG-PCG's iterations. Returns per path
+    its iterations and x (float64, on the CPU). With ``kernels`` (the
+    card at full width) each path also logs its setup seconds, warm ms,
+    true residual and device kernels per iteration; the sharded struct
+    paths must launch kernel 2, and its level-0 view is held against the
+    plain version and timed (``rows``)."""
+    from hypre_tpu_torch.drivers import ij as ij_drv
+    from hypre_tpu_torch.drivers import struct as struct_drv
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import distribute_vector
+    from hypre_tpu_torch.precond import PILUT, Euclid, ParaSails
+    from hypre_tpu_torch.precond.par_sails import ParSails
+    from hypre_tpu_torch.problems.struct_problems import struct_laplacian
+    from hypre_tpu_torch.struct.par_struct import (
+        distribute_pfmg, distribute_struct_vector,
+    )
+
+    cb = kernels is not None
+    mesh = make_mesh(DIST_SHARDS, device=device)
+    out = {}
+
+    def record(key, label, run, A64, b, setup_s, one=None, flat=None,
+               extra=None):
+        t0 = time.perf_counter()
+        if cb:
+            (x, info), warm_ms, grew = timed(kernels, torch, run)
+            # one iteration's work, an apply of M and a product (a window
+            # that short came back empty once: then ten of them); without
+            # ``one``, a whole solve over its iterations
+            def count(reps, fn=one or run):
+                return uncounted(kernels, lambda: device_kernels(
+                    torch, lambda: [fn() for _ in range(reps)])) / reps
+
+            per_it = (count(1) or count(10)) if one else count(1) / max(
+                int(info.iterations), 1)
+            xf = x if flat is None else flat(x)
+            rec = dict(extra or {}, setup_s=setup_s,
+                       device_kernels_per_iteration=per_it)
+            check_solve(label, torch, xf, info, A64, b, warm_ms, grew,
+                        extra=rec)
+        else:
+            x, info = run()
+            xf = x if flat is None else flat(x)
+            require(bool(info.converged), f"{label} on {device} did not "
+                    "converge")
+            grew = {}
+        out[key] = {"iterations": int(info.iterations),
+                    "x": xf.double().cpu()}
+        if cb:
+            log(json.dumps({"phase": "dist_solvers_phase", "part": label,
+                            "seconds": time.perf_counter() - t0 + setup_s}))
+        return grew
+
+    f64 = torch.float64
+    A = H.laplacian_3d_7pt(n, n, n, dtype=dtype, device=device)
+    Ap, part_s = dist_timed(torch, device, lambda: partition_ell(A, mesh))
+    A64 = f64_of(A)
+    b = torch.ones(A.n_rows, dtype=dtype, device=device)
+    bd = distribute_vector(b, mesh)
+    kw = dict(rtol=DIST_RTOL, maxiter=DIST_MAXITER, device=device)
+    for key, label, make, solver in (
+        ("euclid0", "pcg Euclid ILU(0)", lambda Ap: Euclid(level=0).setup(
+            Ap), H.pcg),
+        ("euclid1", "pcg Euclid ILU(1)", lambda Ap: Euclid(level=1).setup(
+            Ap), H.pcg),
+        ("parasails0", "pcg ParaSails (ParSails level 0)",
+         lambda Ap: ParaSails().setup(Ap), H.pcg),
+        ("parsails1", "pcg ParSails level 1",
+         lambda Ap: ParSails(nlevels=1).setup(Ap), H.pcg),
+        ("pilut", "gmres PILUT (ParILUT) f64",
+         lambda Ap: PILUT().setup(Ap), H.gmres),
+    ):
+        Aq, bq = Ap, bd
+        if solver is H.gmres and dtype != f64:
+            Aq = partition_ell(A64, mesh)
+            bq = bd.double()
+        obj, s = dist_timed(torch, device, lambda: make(Aq))
+        M = obj.precond()
+        extra = {"shards": DIST_SHARDS, "n": A.n_rows,
+                 "partition_s": part_s}
+        run = (lambda Aq=Aq, bq=bq, M=M, solver=solver: solver(
+            Aq.mv, bq, M=M, k_dim=30, **kw) if solver is H.gmres else
+            solver(Aq.mv, bq, M=M, **kw))
+        grew = record(key, f"{label} {n}^3 {DIST_SHARDS} shards", run, A64,
+                      b, s, one=lambda Aq=Aq, bq=bq, M=M: (M(bq),
+                                                           Aq.mv(bq)),
+                      extra=extra)
+        if cb:
+            # the distributed products are PyTorch ELL gathers (phase 17)
+            require(not any(grew.values()),
+                    f"{label} launched ported kernels: {grew}")
+        del obj, M, Aq, bq
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    del Ap, bd
+
+    for sid in (90, 91):
+        flags = f"-solver {sid} -n {n} {n} {n} -tol {DIST_RTOL}"
+        case, s = dist_timed(torch, device, lambda: ij_drv.prepare(
+            flags.split(), device=device, dtype=f64))
+        record(f"ij{sid}", f"ij {flags} f64", case.solve, case.A, case.b, s,
+               extra={"flags": flags})
+        del case
+    del A, A64, b
+
+    for dims, nn in ((2, n2d), (3, n3d)):
+        shape = (nn,) * dims
+        flags = (f"-solver 11 -n {nn} {nn} {nn if dims == 3 else 1} "
+                 f"-tol {STRUCT_RTOL} -max_iter {STRUCT_MAXITER}")
+        case = struct_drv.prepare(flags.split(), device=device, dtype=dtype)
+        S64 = struct_laplacian(shape, dtype=f64, device=device)
+        b = case.b
+        if dims == 2:
+            x_star = torch.from_numpy(np.random.default_rng(16).random(
+                shape)).to(device)
+            b = S64.mv(x_star).to(dtype)
+        _, i0 = case.solve(b)
+        sd, s = dist_timed(torch, device, lambda: distribute_pfmg(
+            case.mg, mesh))
+        lay = sd.fine_layout
+        bd = distribute_struct_vector(b, mesh).reshape(-1)
+        op, M = sd.operator(), sd.precond()
+
+        def run():
+            return H.pcg(op, bd, M=M, rtol=STRUCT_RTOL,
+                         maxiter=STRUCT_MAXITER, device=device)
+
+        label = f"PFMG-PCG {'x'.join(map(str, shape))} {DIST_SHARDS} shards"
+        sharded = [lv.layout is not None for lv in sd.levels]
+        grew = record(
+            f"pfmg{dims}d", label, run, S64, b.reshape(-1), s,
+            one=lambda: (M(bd), op(bd)),
+            flat=lambda x: lay.gather(x.reshape((-1,) + lay.local_shape))
+            .reshape(-1),
+            extra={"unsharded_iterations": int(i0.iterations),
+                   "levels_sharded": sharded,
+                   "ghost_planes": sd.levels[0].A.depth})
+        require(out[f"pfmg{dims}d"]["iterations"] == int(i0.iterations),
+                f"{label}: {out[f'pfmg{dims}d']['iterations']} iterations, "
+                f"unsharded {int(i0.iterations)}")
+        if cb:
+            require(grew["dia_spmv_static"] > 0,
+                    f"{label} never launched kernel 2")
+            A0 = sd.levels[0].A
+            hold_dia(A0.dia, f"{label} level-0 ghosted slabs", kernels,
+                     torch, held)
+            if rows is not None:
+                # timing launches are not launches of the path
+                rows.append(uncounted(kernels, lambda: sharded_view_row(
+                    torch, f"{label} level 0", A0)))
+        del case, sd, S64
+    return out
+
+
+def sharded_view_row(torch, label, SA) -> dict:
+    """Kernel 2 on a sharded struct level's DIA view (the stacked ghosted
+    slabs of ``SA``, a ShardedStructMatrix): time, the plain version's time,
+    one CSR product's, and two bounds. ``bound_ms`` counts the function's
+    own bytes: the planes and y over the owned rows, x with its ghost
+    planes; ``layout_bound_ms`` the view's, whose ghost rows carry zero
+    planes and write y too."""
+    from hypre_tpu_torch.seq import dia as dia_mod
+
+    M = SA.dia
+    D, n = M.D, M.n_rows
+    lay = SA.layout
+    n_owned = lay.mesh.local_shards * math.prod(lay.local_shape)
+    x = torch.from_numpy(np.random.default_rng(18).standard_normal(n)).to(
+        "cuda", M.dtype)
+    plain = lambda: dia_mod.dia_spmv_static_plain(M.dvals,  # noqa: E731
+                                                  M.offsets_static, x)
+    csr = csr_of_dia(M, torch)
+    y = M.mv(x)
+    _, ab = rel_err(y, plain(), torch)
+    bms, bby = bound(D * n_owned * 4 + n * 4 + n_owned * 4 + D * 4,
+                     2.0 * D * n_owned, "float32")
+    lms, _ = bound(D * n * 4 + 2 * n * 4 + D * 4, 2.0 * D * n, "float32")
+    rec = {"check": "dia_spmv_static", "operator": label,
+           "shape": [D, n], "owned_rows": n_owned, "max_abs_err": ab,
+           "tol": 0.0, "ms": time_ms(lambda: M.mv(x), torch),
+           "plain_ms": time_ms(plain, torch, warmup=1, reps=5),
+           "bound_ms": bms, "bound_by": bby, "layout_bound_ms": lms,
+           "library_ms": time_ms(lambda: csr @ x[:, None], torch)}
+    log(json.dumps(rec))
+    require(ab == 0.0, f"kernel 2 on {label} differs from the plain "
+            f"version by {ab}")
+    return rec
+
+
+def dist_solvers_phase(H, kernels, torch, held, rows):
+    """Phase 18: the distributed solvers at full width on one card."""
+    kernels.reset_launches()
+    dist_solver_runs(H, torch, "cuda", DIST_N, STRUCT_N2D, STRUCT_N3D,
+                     torch.float32, kernels, held, rows)
+    return dict(kernels.LAUNCHES)
+
+
+def dist_solvers_card_vs_cpu(H, torch):
+    """Phase 18, card against CPU: every path at DIST_SMALL^3 (the struct
+    ones at DIST_SMALL_2D^2 and DIST_SMALL^3) in float64: equal
+    iterations, x within DIST_X_TOL of max |x|."""
+    got = {dev: dist_solver_runs(H, torch, dev, DIST_SMALL, DIST_SMALL_2D,
+                                 DIST_SMALL, torch.float64)
+           for dev in ("cuda", "cpu")}
+    for key, card in got["cuda"].items():
+        cpu = got["cpu"][key]
+        err = float((card["x"] - cpu["x"]).abs().max()
+                    / cpu["x"].abs().max())
+        log(json.dumps({"dist_card_vs_cpu": key,
+                        "iterations": [card["iterations"],
+                                       cpu["iterations"]],
+                        "x_rel_diff": err}))
+        require(card["iterations"] == cpu["iterations"],
+                f"{key}: card {card['iterations']} iterations, CPU "
+                f"{cpu['iterations']}")
+        require(err <= DIST_X_TOL, f"{key}: card x off the CPU's by {err}")
+
+
 def main() -> int:
     import torch
 
@@ -4171,12 +4458,22 @@ def main() -> int:
     t0 = time.perf_counter()
     parallel_card_vs_cpu(H, torch)
     phase_done("parallel_card_vs_cpu", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = []
+    new_phases.append(dist_solvers_phase(H, kernels, torch, held, rows))
+    at_new_shapes.setdefault("dia_spmv_static", []).extend(rows)
+    phase_done("dist_solvers_phase", t0)
+    t0 = time.perf_counter()
+    dist_solvers_card_vs_cpu(H, torch)
+    phase_done("dist_solvers_card_vs_cpu", t0)
     log(json.dumps({"run_seconds": time.perf_counter() - t_run}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # the row-list shapes' second yardstick and variant times
-    extra_keys = ("operator", "nnz_bound_ms", "variants_ms")
+    # the row-list and slab shapes' second yardstick and variant times
+    extra_keys = ("operator", "nnz_bound_ms", "layout_bound_ms",
+                  "owned_rows", "variants_ms")
     path_launches = [l_dyn, l_st, l_td[False], l_td[True], l_bp[False],
                      l_bp[True], l_facade] + new_phases
     line = []

@@ -16,6 +16,14 @@ coordinates. The preconditioner combines
 in the symmetric order smooth, Pi, curl, Pi, smooth. The products are
 formed in float64 on the operator's device (``ams.rap_f64``), as the
 reference forms them in float64 on the host.
+
+The three Pi_d corrections run one after the other, each on the residual
+the previous one left (x, y, z on the way down, z, y, x on the way up),
+as hypre's ADS cycle applies its Pi components ("013454310",
+``ads.c``). The reference adds all three to one residual; that sum is a
+block-Jacobi step over the coupled nodal-vector system, which overshoots,
+so its M is indefinite (eigenvalues of M A down to -1.4 on the 4^3
+constant-coefficient div-div problem), and PCG stalls there from 12^3.
 """
 
 from __future__ import annotations
@@ -122,17 +130,16 @@ class ADS:
         def curl_corr(z, r):
             return z + C.mv(ams_M(Ct.mv(r - A.mv(z))))
 
-        def pi_corr(z, r):
-            res = r - A.mv(z)
-            for Pi, Pit, B in pis:
-                z = z + Pi.mv(B.cycle(Pit.mv(res)))
+        def pi_corr(z, r, order):
+            for Pi, Pit, B in order:
+                z = z + Pi.mv(B.cycle(Pit.mv(r - A.mv(z))))
             return z
 
         def M(r):
             z = smooth(torch.zeros_like(r), r)
-            z = pi_corr(z, r)
+            z = pi_corr(z, r, pis)
             z = curl_corr(z, r)
-            z = pi_corr(z, r)
+            z = pi_corr(z, r, pis[::-1])
             return smooth(z, r)
 
         return M

@@ -80,6 +80,9 @@ class AMGHierarchy:
     # true row count of every level; amg_cycle pads/unpads vectors
     n_fine: int = 0
     n_level_true: tuple = ()
+    # the shard mesh of a partitioned hierarchy (parallel/par_amg.py); on
+    # a ``dist`` mesh the coarse solve gathers its right-hand side
+    mesh: object = None
 
     @property
     def num_levels(self) -> int:
@@ -409,6 +412,23 @@ def _restrict_level(lev: Level, r: torch.Tensor) -> torch.Tensor:
     return lev.Pt.mv(r)
 
 
+def coarse_solve(hier: AMGHierarchy, f: torch.Tensor,
+                 transpose: bool = False) -> torch.Tensor:
+    """The coarsest level's direct solve: the replicated (pseudo)inverse
+    times f. On a ``dist`` mesh each process holds its rows of f: gather
+    them all, multiply by this process's rows of the inverse and keep its
+    own rows of the result (hypre's ``par_gauss_elim.c:84-118`` gathers
+    the coarse right-hand side the same way)."""
+    inv = hier.coarse_inv.T if transpose else hier.coarse_inv
+    mesh = hier.mesh
+    if mesh is None or mesh.comm.backend != "dist":
+        return inv @ f
+    n = f.shape[0]
+    full = mesh.comm.all_gather(f.reshape(mesh.local_shards, -1)).reshape(-1)
+    lo = mesh.first_shard * n
+    return inv[lo: lo + n] @ full
+
+
 def _pad_in(hier: AMGHierarchy, f: torch.Tensor, u):
     """A row-padded hierarchy driven with true-size vectors: pad f and u
     with zeros (padded rows carry exact zeros through a cycle) and return
@@ -439,7 +459,7 @@ def amg_cycle(
 
     def descend(level: int, f, u, ctype: int):
         if level == len(hier.levels):
-            return hier.coarse_inv @ f
+            return coarse_solve(hier, f)
         lev = hier.levels[level]
         sm = smoother[level] if per_level else smoother
         for _ in range(num_sweeps):
@@ -488,7 +508,7 @@ def amg_cycle_t(
 
     def descend(level: int, f, u):
         if level == len(hier.levels):
-            return hier.coarse_inv.T @ f
+            return coarse_solve(hier, f, transpose=True)
         lev = hier.levels[level]
         w = relax_weight if lev.rw is None else lev.rw
         for _ in range(num_sweeps):
@@ -549,7 +569,7 @@ def amg_additive_cycle(
         for lev in core:
             r_list.append(r_cur)
             r_cur = _restrict_level(lev, r_cur)
-        acc = hier.coarse_inv @ r_cur
+        acc = coarse_solve(hier, r_cur)
         for lev, r_l in zip(reversed(core), reversed(r_list)):
             if variant == "simple":
                 e = lev.dinv * r_l
@@ -564,7 +584,7 @@ def amg_additive_cycle(
             acc = e
         u_l = u_l + acc
     else:
-        u_l = hier.coarse_inv @ f_l
+        u_l = coarse_solve(hier, f_l)
 
     # multiplicative up-sweep
     for lev, f_prev, u_prev in reversed(stack):

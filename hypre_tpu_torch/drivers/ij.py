@@ -16,8 +16,8 @@ the outer operator is applied through its kernel format
 (``optimize_operator``: the DIA kernel for a stencil problem), and the
 preconditioners keep theirs. Every AMG id sets up as the reference's
 does, through BoomerAMG's default: the host C++ setup, which also runs
-``-agg_nl``. AMG-DD (ids 90/91) needs the parallel layer, ROADMAP.md
-Queue 1 item 15, and raises.
+``-agg_nl``. AMG-DD (ids 90/91) sets up its composite grids for four
+devices, as the reference's does (``parallel/amgdd.py``).
 """
 
 from __future__ import annotations
@@ -181,10 +181,6 @@ def prepare(argv, device=None, dtype=None) -> Case:
 
     a = parse_args(argv)
     s = a["solver"]
-    if s in (90, 91):
-        raise NotImplementedError(
-            f"solver {s} (AMG-DD) needs the parallel layer (ROADMAP.md "
-            "Queue 1 item 15), which is not ported yet")
     device = resolve_device(device)
     dtype = dtype or torch.float32
     A = build_problem(a, dtype, device)
@@ -295,6 +291,12 @@ def prepare(argv, device=None, dtype=None) -> Case:
             krylov(gmres, M, **gm)
     elif s == 81:
         solve = krylov(gmres, ILUT().setup(A, device=device).precond(), **gm)
+    elif s in (90, 91):
+        from hypre_tpu_torch.parallel.amgdd import AMGDD
+
+        dd = AMGDD(padding=2).setup(A, num_devices=4, device=device)
+        solve = (lambda: dd.solve(b, rtol=a["tol"], maxiter=a["max_iter"])) \
+            if s == 90 else krylov(gmres, dd.precond(), **gm)
     else:
         raise SystemExit(f"unsupported solver id {s}\n{SOLVER_HELP}")
     return Case(args=a, A=A, op=Aop, b=b, solve=solve, amgs=amgs)

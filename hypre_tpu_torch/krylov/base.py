@@ -30,7 +30,7 @@ def finite(x: torch.Tensor) -> torch.Tensor:
 
 
 def zero_rhs(b: torch.Tensor, history: Optional[int] = None,
-             stagnated: Optional[bool] = None
+             stagnated: Optional[bool] = None, mesh=None
              ) -> Optional[tuple[torch.Tensor, ConvergenceInfo]]:
     """The answer to b = 0, or None when b is not zero.
 
@@ -39,8 +39,13 @@ def zero_rhs(b: torch.Tensor, history: Optional[int] = None,
     iterations, relative residual 0, converged. The reference iterates
     from a nonzero x0 to maxiter instead. ``history``: the length of the
     res_history to return (slot 0 = 0, the rest -1), when logging.
-    ``stagnated``: the flag to report, when the driver reports one."""
-    if bool(torch.any(b != 0)):
+    ``stagnated``: the flag to report, when the driver reports one.
+    ``mesh``: a ``dist`` mesh whose processes each hold a part of b (the
+    test is then global, so every process takes the same branch)."""
+    nonzero = torch.any(b != 0).to(torch.int32)
+    if mesh is not None and mesh.comm.backend == "dist":
+        nonzero = mesh.comm.max(nonzero.reshape(1)).reshape(())
+    if bool(nonzero):
         return None
     norms = None
     if history is not None:

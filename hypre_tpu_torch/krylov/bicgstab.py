@@ -10,6 +10,7 @@ test back once per iteration (twice on the iterations where
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -19,7 +20,7 @@ from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
 from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
-from hypre_tpu_torch.seq.vector import dot
+from hypre_tpu_torch.seq.vector import dot as vdot
 
 
 def bicgstab(
@@ -35,6 +36,7 @@ def bicgstab(
     residual_fn: Optional[LinearOp] = None,
     final_residual: bool = True,
     device=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, ConvergenceInfo]:
     """Solve A x = b on ``device`` (CUDA unless the caller names another).
 
@@ -44,11 +46,13 @@ def bicgstab(
     stagnated=True. final_residual (default on): report the relative
     residual of a recomputed r = b - A x. residual_fn: optional exact
     residual evaluator x -> b - A x. logging > 0 records ||r|| per
-    iteration in ``info.res_history``."""
+    iteration in ``info.res_history``. mesh: the ``dist`` mesh the
+    vectors are split over (global inner products, as ``pcg``)."""
     device = resolve_device(device)
     b = b.to(device)
+    dot = functools.partial(vdot, mesh=mesh)
     done = zero_rhs(b, maxiter + 1 if logging > 0 else None,
-                    False if recompute_residual else None)
+                    False if recompute_residual else None, mesh=mesh)
     if done is not None:
         return done
     M = M or identity_precond

@@ -9,6 +9,7 @@ two-norm. Host reads as in ``gmres.py``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -20,7 +21,7 @@ from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
 from hypre_tpu_torch.krylov.gmres import (
     arnoldi_rotate, cgs_project, ls_update, safe_div,
 )
-from hypre_tpu_torch.seq.vector import norm2
+from hypre_tpu_torch.seq.vector import norm2 as vnorm2
 
 
 def flexgmres(
@@ -33,11 +34,14 @@ def flexgmres(
     maxiter: int = 1000,
     k_dim: int = 30,
     device=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, ConvergenceInfo]:
-    """Solve A x = b to ||b - A x|| <= max(rtol * ||b||, atol)."""
+    """Solve A x = b to ||b - A x|| <= max(rtol * ||b||, atol). mesh: the
+    ``dist`` mesh the vectors are split over (global inner products)."""
     device = resolve_device(device)
     b = b.to(device)
-    done = zero_rhs(b)
+    norm2 = functools.partial(vnorm2, mesh=mesh)
+    done = zero_rhs(b, mesh=mesh)
     if done is not None:
         return done
     M = M or identity_precond
@@ -61,7 +65,7 @@ def flexgmres(
         m = 0
         for j in range(min(k_dim, maxiter - it)):  # stop at maxiter
             Z[j] = M(V[j])
-            w, h = cgs_project(V[: j + 1], A(Z[j]), 2)
+            w, h = cgs_project(V[: j + 1], A(Z[j]), 2, mesh)
             h_next = norm2(w)
             V[j + 1] = safe_div(w, h_next)
             R[:, j], res_est = arnoldi_rotate(h, h_next, cs, sn, g, j,

@@ -18,6 +18,7 @@ other GMRES variants.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,7 +27,8 @@ from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
 from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
-from hypre_tpu_torch.seq.vector import norm2
+from hypre_tpu_torch.seq.vector import global_sum
+from hypre_tpu_torch.seq.vector import norm2 as vnorm2
 
 
 def safe_div(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -72,13 +74,14 @@ def ls_update(R: torch.Tensor, g: torch.Tensor, m: int) -> torch.Tensor:
         R[:m, :m], g[:m, None], upper=True)[:, 0]
 
 
-def cgs_project(V: torch.Tensor, w: torch.Tensor, passes: int):
+def cgs_project(V: torch.Tensor, w: torch.Tensor, passes: int, mesh=None):
     """w minus its projection on the rows of V, by classical Gram-Schmidt
-    ``passes`` times; returns (w, the summed coefficients)."""
-    h = V @ w
+    ``passes`` times; returns (w, the summed coefficients). On a ``dist``
+    mesh each pass's coefficients are one global sum."""
+    h = global_sum(V @ w, mesh)
     w = w - h @ V
     for _ in range(passes - 1):
-        h2 = V @ w
+        h2 = global_sum(V @ w, mesh)
         w = w - h2 @ V
         h = h + h2
     return w, h
@@ -96,6 +99,7 @@ def gmres(
     gs_passes: int = 2,
     logging: int = 0,
     device=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, ConvergenceInfo]:
     """Solve A x = b. ``b`` and ``x0`` are moved to ``device`` (CUDA
     unless the caller names another); ``A`` and ``M`` must run there.
@@ -103,10 +107,12 @@ def gmres(
     Convergence: ||M(b - A x)|| <= max(rtol * ||M b||, atol), tested on
     the true residual at every restart. logging > 0 records the Givens
     residual estimates of every step in ``info.res_history`` (hypre's
-    gmres.c norms array)."""
+    gmres.c norms array). mesh: the ``dist`` mesh the vectors are split
+    over (global inner products and projections)."""
     device = resolve_device(device)
     b = b.to(device)
-    done = zero_rhs(b, maxiter + 1 if logging > 0 else None)
+    norm2 = functools.partial(vnorm2, mesh=mesh)
+    done = zero_rhs(b, maxiter + 1 if logging > 0 else None, mesh=mesh)
     if done is not None:
         return done
     M = M or identity_precond
@@ -136,7 +142,7 @@ def gmres(
         # hypre's Arnoldi loop stops at max_iter (krylov/gmres.c); the
         # reference finishes the restart cycle and overshoots
         for j in range(min(k_dim, maxiter - it)):
-            w, h = cgs_project(V[: j + 1], M(A(V[j])), gs_passes)
+            w, h = cgs_project(V[: j + 1], M(A(V[j])), gs_passes, mesh)
             h_next = norm2(w)
             V[j + 1] = safe_div(w, h_next)
             R[:, j], res_est = arnoldi_rotate(h, h_next, cs, sn, g, j,

@@ -15,6 +15,7 @@ stopping test back to the host once per iteration.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -24,7 +25,7 @@ from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
 from hypre_tpu_torch.krylov.base import LinearOp, identity_precond, zero_rhs
-from hypre_tpu_torch.seq.vector import dot
+from hypre_tpu_torch.seq.vector import dot as vdot
 
 
 def pcg(
@@ -43,6 +44,7 @@ def pcg(
     residual_fn: Optional[LinearOp] = None,
     final_residual: bool = True,
     device=None,
+    mesh=None,
 ) -> tuple[torch.Tensor, ConvergenceInfo]:
     """Solve A x = b. ``b`` and ``x0`` are moved to ``device`` (CUDA
     unless the caller names another); ``A`` and ``M`` must run there.
@@ -62,11 +64,15 @@ def pcg(
     final_residual (default on): after the loop, recompute r = b - A x
     once and report that as the relative residual.
     residual_fn: optional exact-residual evaluator x -> b - A x.
+    mesh: the ``dist`` mesh the vectors are split over (each process
+    holds its rows): the inner products become global sums. None, or a
+    ``local`` mesh, computes what it always did.
     """
     device = resolve_device(device)
     b = b.to(device)
+    dot = functools.partial(vdot, mesh=mesh)
     done = zero_rhs(b, maxiter + 1 if logging > 0 else None,
-                    False if recompute_residual else None)
+                    False if recompute_residual else None, mesh=mesh)
     if done is not None:
         return done
     M = M or identity_precond

@@ -7,7 +7,9 @@ distributed: halo-exchange products for A, P and Pt, and a replicated
 dense coarse solve (hypre gathers the coarse system the same way,
 ``par_gauss_elim.c:84-118``). Level and AMGHierarchy only ask their
 operators for ``mv``/``mv_t`` and vector lengths, so ``amg_cycle`` and
-every smoother run unchanged on the partitioned hierarchy.
+every smoother run unchanged on the partitioned hierarchy. The
+hierarchy keeps its mesh, so that on a ``dist`` mesh the coarse solve
+gathers its right-hand side (``amg.hierarchy.coarse_solve``).
 """
 
 from __future__ import annotations
@@ -65,4 +67,4 @@ def partition_hierarchy(hier: AMGHierarchy, mesh: Mesh) -> AMGHierarchy:
     return AMGHierarchy(
         levels=levels,
         coarse_inv=pad_coarse_inverse(hier.coarse_inv.cpu().numpy(), mesh),
-        galerkin=hier.galerkin)
+        galerkin=hier.galerkin, mesh=mesh)

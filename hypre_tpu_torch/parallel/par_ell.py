@@ -203,12 +203,21 @@ def par_spmv_t(A: ParEllMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def _compact_rows_np(vals: np.ndarray, cols: np.ndarray, keep: np.ndarray):
-    """Left-compact kept entries per row; shrink to the widest row."""
-    order = np.argsort(~keep, axis=1, kind="stable")
-    cols_s = np.take_along_axis(np.where(keep, cols, -1), order, axis=1)
-    vals_s = np.take_along_axis(np.where(keep, vals, 0), order, axis=1)
-    width = max(int(keep.sum(axis=1).max(initial=0)), 1)
-    return vals_s[:, :width], cols_s[:, :width]
+    """Left-compact kept entries per row, in slot order; shrink to the
+    widest row. The kept entries in row-major order are already in that
+    order; each goes to its row's start plus its rank, so no sort is
+    needed."""
+    n = keep.shape[0]
+    counts = keep.sum(axis=1)
+    width = max(int(counts.max(initial=0)), 1)
+    first = np.cumsum(counts) - counts  # each row's first kept entry
+    dest = np.arange(int(counts.sum())) + np.repeat(
+        np.arange(n) * width - first, counts)
+    cols_s = np.full(n * width, -1, cols.dtype)
+    vals_s = np.zeros(n * width, vals.dtype)
+    cols_s[dest] = cols[keep]
+    vals_s[dest] = vals[keep]
+    return vals_s.reshape(n, width), cols_s.reshape(n, width)
 
 
 def rewrite_offd(offd_cols_g: np.ndarray, recv_pos: list,
@@ -257,14 +266,16 @@ def split_global(vals: np.ndarray, cols: np.ndarray, row_part: RowPartition,
                  col_part: RowPartition):
     """(n_padded, k) global rows -> the diag block (local columns) and the
     offd block (global columns), each left-compacted to its widest row."""
-    valid = cols >= 0
-    row_owner = (np.arange(cols.shape[0]) // row_part.n_local)[:, None]
-    col_owner = np.where(valid, col_part.owner_of(np.maximum(cols, 0)), -9)
-    is_diag = valid & (col_owner == row_owner)
-    diag_vals, diag_cols_g = _compact_rows_np(vals, cols, is_diag)
-    diag_cols = np.where(diag_cols_g >= 0,
-                         col_part.local_index(np.maximum(diag_cols_g, 0)), -1)
-    offd_vals, offd_cols_g = _compact_rows_np(vals, cols, valid & ~is_diag)
+    # a column is in the diag block when it lies in the row owner's column
+    # range; its offset there is its local index (padding falls below)
+    ncl = col_part.n_local
+    lo = (np.arange(cols.shape[0]) // row_part.n_local * ncl).astype(
+        cols.dtype)
+    rel = cols - lo[:, None]
+    is_diag = (rel >= 0) & (rel < ncl)
+    diag_vals, diag_cols = _compact_rows_np(vals, rel, is_diag)
+    offd_vals, offd_cols_g = _compact_rows_np(vals, cols,
+                                              (cols >= 0) & ~is_diag)
     return diag_vals, diag_cols, offd_vals, offd_cols_g
 
 

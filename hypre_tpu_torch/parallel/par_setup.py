@@ -560,4 +560,4 @@ def setup_hierarchy_par(
     dt = A_cur.diag_vals.cpu().numpy().dtype
     return AMGHierarchy(levels=levels,
                         coarse_inv=pad_coarse_inverse(inv.astype(dt), mesh),
-                        galerkin=True)
+                        galerkin=True, mesh=mesh)

@@ -16,7 +16,7 @@ _WHERE = {
     "ILUSchurGMRES": "ilu_schur", "ILUSchurNSH": "ilu_schur",
     "PolyPrecond": "poly", "BlockPrecond": "saddle",
     "SaddleSystem": "saddle", "Uzawa": "saddle", "IC": "ic", "DDICT": "ic",
-    "DDILUT": "ic",
+    "DDILUT": "ic", "ParILU": "par_ilu", "ParSails": "par_sails",
 }
 
 __all__ = sorted(_WHERE)

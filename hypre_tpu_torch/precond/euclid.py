@@ -16,8 +16,10 @@ configuration shells that map the reference's knobs onto it:
 - ``PILUT``: ILUT with pilut's ``factor_row_size`` and
   ``drop_tolerance``.
 
-The reference's row-sharded branches (``ParEllMatrix``, its par_ilu) wait
-for the parallel layer, ROADMAP.md Queue 1 item 15, and raise here.
+On a row-sharded ``ParEllMatrix`` both take the distributed path of
+``precond/par_ilu.py``, as the reference's do: Euclid the distributed
+Chow-Patel ILU (``ParILU``, after ``par_extend_pattern`` for ``level >
+0``), PILUT the distributed ILUT (``ParILUT``).
 """
 
 from __future__ import annotations
@@ -32,13 +34,17 @@ from hypre_tpu_torch.precond.ilu import ILU, ILUT, _row_ids, _zero
 from hypre_tpu_torch.seq.ell import EllMatrix
 
 
-def require_local(A, what: str) -> None:
-    """Raise for an operator other than a single-device EllMatrix: the
-    reference's distributed branch is not ported."""
-    if not isinstance(A, EllMatrix):
-        raise NotImplementedError(
-            f"{what} on a distributed operator needs the parallel layer "
-            "(ROADMAP.md Queue 1 item 15), which is not ported yet")
+def is_distributed(A, what: str) -> bool:
+    """True for a row-sharded ParEllMatrix, False for a single-device
+    EllMatrix; another operator type raises."""
+    from hypre_tpu_torch.parallel.par_ell import ParEllMatrix
+
+    if isinstance(A, ParEllMatrix):
+        return True
+    if isinstance(A, EllMatrix):
+        return False
+    raise TypeError(f"{what} takes an EllMatrix or a ParEllMatrix, not "
+                    f"{type(A).__name__}")
 
 
 def block_diag_pattern(A: EllMatrix, num_subdomains: int) -> EllMatrix:
@@ -85,7 +91,12 @@ def _preprocess(A: EllMatrix, sparse_a: float, row_scale: bool,
 class Euclid(ILU):
     """HYPRE_EuclidCreate / SetLevel / SetBJ / SetSparseA / SetRowScale
     analogue (``parcsr_ls/HYPRE_parcsr_ls.h:1860``, flag database
-    ``distributed_ls/Euclid/Parser_dh.c``)."""
+    ``distributed_ls/Euclid/Parser_dh.c``).
+
+    On a ParEllMatrix the factorization is distributed (``ParILU`` on
+    the ``level``-envelope of ``par_extend_pattern``) and runs on the
+    matrix's own mesh and device; ``sparse_a``, ``row_scale`` and ``bj``
+    are ignored there, as the reference ignores them."""
 
     level: int = 1            # -level: fill level k
     bj: int = 0               # -bj: block-Jacobi subdomains (0 = off)
@@ -94,9 +105,20 @@ class Euclid(ILU):
 
     _row_scale_vec: object = dataclasses.field(default=None, init=False,
                                                repr=False)
+    _par: object = dataclasses.field(default=None, init=False, repr=False)
 
     def setup(self, A, device=None) -> "Euclid":
-        require_local(A, "Euclid")
+        if is_distributed(A, "Euclid"):
+            from hypre_tpu_torch.precond.par_ilu import (
+                ParILU, par_extend_pattern,
+            )
+
+            Ax = par_extend_pattern(A, self.level) if self.level > 0 else A
+            self._par = ParILU(factor_sweeps=self.factor_sweeps,
+                               solve_sweeps=self.solve_sweeps).setup(Ax)
+            self._row_scale_vec = None
+            return self
+        self._par = None
         A = A.to(resolve_device(device))
         Af, self._row_scale_vec = _preprocess(A, self.sparse_a,
                                               self.row_scale, self.bj)
@@ -105,6 +127,8 @@ class Euclid(ILU):
         return self
 
     def precond(self):
+        if self._par is not None:
+            return self._par.precond()
         base = super().precond()
         scale = self._row_scale_vec
         if scale is None:
@@ -122,8 +146,19 @@ class PILUT(ILUT):
     drop_tolerance: float = 1e-4  # SetDropTolerance
     num_subdomains: int = 0     # > 1: block-Jacobi restriction, as -bj
 
+    _par: object = dataclasses.field(default=None, init=False, repr=False)
+
     def setup(self, A, device=None) -> "PILUT":
-        require_local(A, "PILUT")
+        """On a ParEllMatrix: the distributed ILUT (``ParILUT``) with
+        ``drop_tolerance`` and ``factor_row_size``, on the matrix's mesh."""
+        if is_distributed(A, "PILUT"):
+            from hypre_tpu_torch.precond.par_ilu import ParILUT
+
+            self._par = ParILUT(drop_tolerance=self.drop_tolerance,
+                                factor_row_size=self.factor_row_size
+                                ).setup(A)
+            return self
+        self._par = None
         A = A.to(resolve_device(device))
         if self.num_subdomains > 1:
             A = block_diag_pattern(A, self.num_subdomains)
@@ -131,3 +166,8 @@ class PILUT(ILUT):
         self.drop_tol = self.drop_tolerance
         super().setup(A, device=A.device)
         return self
+
+    def precond(self):
+        if self._par is not None:
+            return self._par.precond()
+        return super().precond()

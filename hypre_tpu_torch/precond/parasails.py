@@ -28,7 +28,7 @@ import torch
 
 from hypre_tpu_torch.core.config import PAD_COL, resolve_device
 from hypre_tpu_torch.precond.common import gather_submatrices, lookup_chunked
-from hypre_tpu_torch.precond.euclid import require_local
+from hypre_tpu_torch.precond.euclid import is_distributed
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.slabops import cap_slab, merge_slab
 from hypre_tpu_torch.seq.spgemm import ell_spgemm, ell_transpose
@@ -76,8 +76,15 @@ class ParaSails:
         return pc
 
     def setup(self, A, device=None) -> "ParaSails":
-        """Build M on ``device`` (CUDA unless the caller names another)."""
-        require_local(A, "ParaSails")
+        """Build M on ``device`` (CUDA unless the caller names another).
+        On a ParEllMatrix the distributed ``ParSails`` (level-0 pattern,
+        ``thresh``) builds it on the matrix's mesh, as the reference's
+        does."""
+        if is_distributed(A, "ParaSails"):
+            from hypre_tpu_torch.precond.par_sails import ParSails
+
+            self.M = ParSails(thresh=self.thresh).setup(A).M
+            return self
         A = A.to(resolve_device(device))
         B = ell_spgemm(A, ell_transpose(A))  # A A^T (SPD Gram matrix)
         pattern = self._pattern(A)  # (n, kp)

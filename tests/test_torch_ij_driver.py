@@ -115,9 +115,6 @@ def test_help_and_unsupported_ids():
     with contextlib.redirect_stdout(buf), pytest.raises(SystemExit) as e:
         t_ij.run(["-help"], device="cpu")
     assert e.value.code == 0 and "80 = ILU-GMRES" in buf.getvalue()
-    for s in (90, 91):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            t_ij.run(["-solver", str(s)], device="cpu")
     with pytest.raises(SystemExit, match="unsupported solver id 99"):
         run_port("-solver 99 -n 8 8 1")
     with pytest.raises(SystemExit, match="unknown flag -bogus"):

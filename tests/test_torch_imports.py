@@ -1,7 +1,7 @@
 """hypre_tpu_torch stands alone: it imports neither JAX nor hypre_tpu,
 nor scipy (which only fem_stiffness_2d imports, inside the call), builds
 nothing and joins no process group at import time, and chip_smoke.py
-refuses to run without a card."""
+and multicard_smoke.py refuse to run without their cards."""
 
 import os
 import re
@@ -15,7 +15,8 @@ from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hypre_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "profile_torch_solve.py"]
+    [ROOT / "chip_smoke.py", ROOT / "profile_torch_solve.py",
+     ROOT / "multicard_smoke.py"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
@@ -63,6 +64,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.parallel.multihost\n"
         "import hypre_tpu_torch.core.partition, hypre_tpu_torch.core.timing\n"
         "import hypre_tpu_torch.matrix_facade, hypre_tpu_torch.drivers.ij_mm\n"
+        "import hypre_tpu_torch.precond.par_ilu\n"
+        "import hypre_tpu_torch.precond.par_sails\n"
+        "import hypre_tpu_torch.parallel.amgdd\n"
+        "import hypre_tpu_torch.struct.par_struct\n"
+        "import multicard_smoke\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -97,7 +103,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "fac.py", "fem.py", "fei.py", "partition.py", "timing.py",
             "matrix_facade.py", "ij_mm.py", "comm.py", "mesh.py", "halo.py",
             "par_ell.py", "par_amg.py", "par_setup.py",
-            "multihost.py"} <= names
+            "multihost.py", "par_ilu.py", "par_sails.py", "amgdd.py",
+            "par_struct.py", "multicard_smoke.py"} <= names
     for rel in ("drivers/ij.py", "drivers/struct.py", "struct/hybrid.py",
                 "struct/io.py", "struct/__init__.py", "drivers/sstruct.py",
                 "sstruct/__init__.py", "sstruct/matrix.py",
@@ -116,6 +123,16 @@ def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         return
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_multicard_smoke_fails_without_four_cards():
+    if torch.cuda.device_count() >= 4:
+        return
+    proc = subprocess.run([sys.executable, str(ROOT / "multicard_smoke.py")],
                           cwd=ROOT, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode != 0

@@ -10,8 +10,11 @@ CPU.
   reference's (whose products run in its C++ CSR kernels) to 1e-12; PCG
   takes the reference's iterations with the "01210" and the additive
   cycle (tests/test_mgr_ams.py:124).
-- ADS: the face weights, normals and Pi match to 1e-12; PCG takes the
-  reference's iterations (tests/test_ads.py:110).
+- ADS: the face weights, normals and Pi match to 1e-12; the port's
+  cycle equals hypre's multiplicative composition of the reference's
+  set-up parts to 1e-10, and the reference's additive cycle, rebuilt from
+  the port's parts, takes the reference's iterations
+  (tests/test_ads.py:110).
 - AME: the eigenvalues of both solve paths (LOBPCG in the operator's
   type; the float64 outer loop over a float32 operator) match to 1e-6
   (tests/test_misc_components.py:28 and its float32 variant).
@@ -196,16 +199,132 @@ def test_ads_face_weights_normals_and_pi_match(ads_3d):
         same_matrix(tPi, jPi, 1e-12)
 
 
+def reference_cycle(ads):
+    """The reference's ADS cycle from the port's parts: the same smoothing,
+    curl and Pi corrections, the three Pi_d corrections added on one
+    residual (hypre_tpu/amg/ads.py:128-146)."""
+    A, C, Ct, l1inv = ads.A, ads.C, ads.Ct, ads.l1inv
+    ams_M = ads.ams.precond()
+
+    def smooth(z, r):
+        return z + l1inv * (r - A.mv(z))
+
+    def pi_corr(z, r):
+        res = r - A.mv(z)
+        for Pi, Pit, B in zip(ads.Pis, ads.Pits, ads.B_Pi):
+            z = z + Pi.mv(B.cycle(Pit.mv(res)))
+        return z
+
+    def M(r):
+        z = pi_corr(smooth(torch.zeros_like(r), r), r)
+        z = z + C.mv(ams_M(Ct.mv(r - A.mv(z))))
+        return smooth(pi_corr(z, r), r)
+
+    return M
+
+
 def test_ads_takes_the_reference_iterations(ads_3d):
+    # with the reference's cycle (reference_cycle) the port takes its
+    # iterations; the port's own runs the Pi_d corrections one after
+    # another, as hypre does, and takes fewer
+    # (test_ads_pi_components_run_one_after_another)
     jA, _, _, tA, _, _, _, jd, td = ads_3d
     b = np.ones(jA.n_rows)
     jx, ji = j_pcg(lambda v: j_spmv(jA, v), jnp.asarray(b), M=jd.precond(),
                    rtol=1e-8, maxiter=500)
-    tx, ti = H.pcg(tA.mv, torch.from_numpy(b), M=td.precond(), rtol=1e-8,
-                   maxiter=500, device="cpu")
+    tx, ti = H.pcg(tA.mv, torch.from_numpy(b), M=reference_cycle(td),
+                   rtol=1e-8, maxiter=500, device="cpu")
     assert bool(ti.converged) and bool(ji.converged)
     assert int(ti.iterations) == int(ji.iterations)
     assert rel_close(tx, jx, 1e-6)
+    _, tm = H.pcg(tA.mv, torch.from_numpy(b), M=td.precond(), rtol=1e-8,
+                  maxiter=500, device="cpu")
+    assert bool(tm.converged) and int(tm.iterations) < int(ji.iterations)
+
+
+def test_ads_pi_components_run_one_after_another():
+    """The reference adds the three Pi_d corrections to one residual (a
+    block-Jacobi step over the coupled nodal-vector system), which makes
+    its M indefinite: on the constant-coefficient div-div problem M A has
+    eigenvalues down to -1.4 at 4^3, and PCG no longer converges from
+    12^3 (1000 iterations at 24^3, relative residual 7.5e-3). Run one
+    after another (hypre's ADS cycle), M is SPD and PCG takes 5-6
+    iterations from 4^3 to 16^3; on the lognormal draw 7-23."""
+    A, C, G, xyz = maxwell.div_div_3d(4, sigma=0.0, **F64)
+    n = A.n_rows
+    eye = torch.eye(n, dtype=torch.float64)
+    Ad = torch.stack([A.mv(eye[i]) for i in range(n)], 1)
+    L = torch.linalg.cholesky(Ad)
+    lam = {}
+    ads = ADS().setup(A, C, G, xyz, device="cpu")
+    for cyc, M in (("multiplicative", ads.precond()),
+                   ("additive", reference_cycle(ads))):
+        Md = torch.stack([M(eye[i]) for i in range(n)], 1)
+        assert float((Md - Md.T).abs().max()) < 1e-10 * float(
+            Md.abs().max())
+        lam[cyc] = float(torch.linalg.eigvalsh(L.T @ Md @ L).min())
+    assert lam["multiplicative"] > 0.5 and lam["additive"] < -1.0
+    A, C, G, xyz = maxwell.div_div_3d(12, sigma=0.0, **F64)
+    b = A.mv(torch.from_numpy(np.random.default_rng(18).random(A.n_cols)))
+    its = {}
+    ads = ADS().setup(A, C, G, xyz, device="cpu")
+    for cyc, M in (("multiplicative", ads.precond()),
+                   ("additive", reference_cycle(ads))):
+        _, info = H.pcg(A.mv, b, M=M, rtol=1e-6, maxiter=40, device="cpu")
+        its[cyc] = (int(info.iterations), bool(info.converged))
+    assert its["multiplicative"][1] and its["multiplicative"][0] <= 8
+    assert not its["additive"][1]
+
+
+def test_ads_cycle_is_the_multiplicative_composition_of_reference_parts(
+        ads_3d):
+    """The port's ADS cycle equals, to 1e-10, hypre's multiplicative
+    composition written here in numpy from the reference's own set-up
+    parts: l1 smoothing on A, the Pi_d corrections x, y, z on the way
+    down and z, y, x on the way up, each on the residual the previous one
+    left, and between them C times the inner AMS's 01210 cycle (its Pi
+    corrections on one residual, no gradient correction: beta is zero)
+    applied to C^T times the residual."""
+    _, _, _, tA, _, _, _, jd, td = ads_3d
+    dense = lambda M: j_ell_to_csr(M).to_dense()  # noqa: E731
+    A, C = dense(jd.A), dense(jd.C)
+    l1 = np.asarray(jd.l1inv)
+    Pis = [dense(P) for P in jd.Pis]
+    ams = jd.ams
+    A_C, l1_C = dense(ams.A), np.asarray(ams.l1inv)
+    ams_Pis = [dense(P) for P in ams.Pis]
+
+    def cyc(B, v):
+        return np.asarray(B.cycle(jnp.asarray(v)))
+
+    def ams_M(r):
+        def smooth(z):
+            return z + l1_C * (r - A_C @ z)
+
+        def pi_corr(z):
+            res = r - A_C @ z
+            return z + sum(P @ cyc(B, P.T @ res)
+                           for P, B in zip(ams_Pis, ams.B_Pi))
+
+        return smooth(pi_corr(pi_corr(smooth(np.zeros_like(r)))))
+
+    def ads_M(r):
+        def smooth(z):
+            return z + l1 * (r - A @ z)
+
+        def pi_corr(z, order):
+            for d in order:
+                z = z + Pis[d] @ cyc(jd.B_Pi[d], Pis[d].T @ (r - A @ z))
+            return z
+
+        z = pi_corr(smooth(np.zeros_like(r)), (0, 1, 2))
+        z = z + C @ ams_M(C.T @ (r - A @ z))
+        return smooth(pi_corr(z, (2, 1, 0)))
+
+    r = np.random.default_rng(13).standard_normal(tA.n_rows)
+    want = ads_M(r)
+    got = td.precond()(torch.from_numpy(r)).numpy()
+    assert np.abs(got - want).max() <= 1e-10 * np.abs(want).max()
 
 
 def test_ads_inner_ams_leaves_out_the_gradient_correction():

@@ -8,6 +8,7 @@ Laplacian, and its distributed products, one ``all_reduce`` and a
 distributed setup must equal the one-process results.
 """
 
+import json
 import pathlib
 import socket
 import subprocess
@@ -92,7 +93,7 @@ def test_dist_backend_refuses_card_tensors_on_gloo():
 
 
 WORKER = """
-import sys
+import json, sys
 sys.path.insert(0, {root!r})
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -102,44 +103,69 @@ from hypre_tpu_torch.parallel import shutdown_multihost
 from hypre_tpu_torch.parallel.par_ell import (
     collect_vector, distribute_vector, par_spmv, par_spmv_t)
 from hypre_tpu_torch.parallel.par_setup import setup_hierarchy_par
+import multicard_smoke as mc
 
 rank = init_multihost("127.0.0.1:{port}", num_processes=2,
                       process_id=int(sys.argv[1]), timeout_s=100)
-A = H.laplacian_2d_5pt(24, 24, dtype=torch.float64, device="cpu")
-x = np.random.default_rng(0).standard_normal(A.n_rows)
-out = {{}}
-for backend in ("dist", "local"):
-    mesh = make_mesh(2, device="cpu", backend=backend)
-    P = partition_ell(A, mesh)
-    xd = distribute_vector(x, mesh)
-    out[backend] = (
-        collect_vector(par_spmv(P, xd), A.n_rows, mesh),
-        collect_vector(par_spmv_t(P, xd), A.n_rows, mesh),
-        [lv.A.n_rows for lv in setup_hierarchy_par(
-            P, max_coarse_size=32).levels],
-    )
-    if backend == "dist":
-        assert P.local_shards == 1 and xd.shape[0] == A.n_rows // 2
-        total = mesh.comm.sum(torch.tensor([rank + 1.0]))
-        assert float(total) == 3.0, float(total)
-for a, b in zip(out["dist"][:2], out["local"][:2]):
-    assert np.array_equal(a, b), np.abs(a - b).max()
-assert np.allclose(out["local"][0], A.mv(torch.from_numpy(x)).numpy(),
-                   rtol=1e-12, atol=1e-12)
-assert out["dist"][2] == out["local"][2], out
+
+
+def bringup():
+    A = H.laplacian_2d_5pt(24, 24, dtype=torch.float64, device="cpu")
+    x = np.random.default_rng(0).standard_normal(A.n_rows)
+    out = {{}}
+    for backend in ("dist", "local"):
+        mesh = make_mesh(2, device="cpu", backend=backend)
+        P = partition_ell(A, mesh)
+        xd = distribute_vector(x, mesh)
+        out[backend] = (
+            collect_vector(par_spmv(P, xd), A.n_rows, mesh),
+            collect_vector(par_spmv_t(P, xd), A.n_rows, mesh),
+            [lv.A.n_rows for lv in setup_hierarchy_par(
+                P, max_coarse_size=32).levels],
+        )
+        if backend == "dist":
+            assert P.local_shards == 1 and xd.shape[0] == A.n_rows // 2
+            total = mesh.comm.sum(torch.tensor([rank + 1.0]))
+            assert float(total) == 3.0, float(total)
+    for a, b in zip(out["dist"][:2], out["local"][:2]):
+        assert np.array_equal(a, b), np.abs(a - b).max()
+    assert np.allclose(out["local"][0], A.mv(torch.from_numpy(x)).numpy(),
+                       rtol=1e-12, atol=1e-12)
+    assert out["dist"][2] == out["local"][2], out
+    return []
+
+
+def solves():
+    # the distributed solves against the same run on a local 2-shard mesh
+    kw = dict(amg_shape=(16, 16, 16), ilu_shape=(24, 24),
+              struct_shape=(64, 32), rtol=1e-8, max_coarse=64)
+    dist = mc.solve_checks(make_mesh(2, device="cpu", backend="dist"),
+                           torch.float64, **kw)
+    local = mc.solve_checks(make_mesh(2, device="cpu"), torch.float64, **kw)
+    return {{key: [b for b in mc.compare({{key: dist[key]}},
+                                         {{key: local[key]}}, 1e-10)]
+             + [dist[key]["iterations"]] for key in dist}}
+
+
+for name, fn in (("bringup", bringup), ("solves", solves)):
+    try:
+        print("CHECK", name, json.dumps(fn()), flush=True)
+    except Exception as e:
+        print("CHECK", name, json.dumps(["raised: %r" % (e,)]), flush=True)
 shutdown_multihost()
-print("RANK_OK", rank, out["dist"][2])
+print("RANK_OK", rank)
 """
 
 
-def test_two_process_gloo_bringup(tmp_path):
-    # two OS processes join through init_multihost on loopback (gloo),
-    # each holds one shard: par_spmv, par_spmv_t, an all_reduce and the
-    # distributed setup equal the one-process (local backend) results
+@pytest.fixture(scope="module")
+def gloo_pair(tmp_path_factory):
+    """Two OS processes that join through init_multihost on loopback
+    (gloo), each holding one shard, run every check once; returns each
+    rank's {check: result} (the start-up is paid once)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    script = tmp_path / "worker.py"
+    script = tmp_path_factory.mktemp("gloo") / "worker.py"
     script.write_text(textwrap.dedent(WORKER.format(root=str(ROOT),
                                                     port=port)))
     procs = [subprocess.Popen([sys.executable, str(script), str(i)],
@@ -147,12 +173,39 @@ def test_two_process_gloo_bringup(tmp_path):
                               stderr=subprocess.STDOUT, text=True)
              for i in (0, 1)]
     try:
-        outs = [p.communicate(timeout=120)[0] for p in procs]
+        outs = [p.communicate(timeout=240)[0] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    ranks = []
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {i} failed:\n{out[-3000:]}"
         assert f"RANK_OK {i}" in out
+        ranks.append({line.split()[1]: json.loads(line.split(None, 2)[2])
+                      for line in out.splitlines()
+                      if line.startswith("CHECK ")})
+    return ranks
+
+
+def test_two_process_gloo_bringup(gloo_pair):
+    # par_spmv, par_spmv_t, an all_reduce and the distributed setup over
+    # two processes equal the one-process (local backend) results
+    for rank in gloo_pair:
+        assert rank["bringup"] == []
+
+
+@pytest.mark.parametrize("path", ["pcg_l1_jacobi", "pcg_par_ilu", "pfmg"])
+def test_two_process_gloo_solve_equals_the_local_run(gloo_pair, path):
+    # a real multi-process solve: PCG + l1-Jacobi on setup_hierarchy_par's
+    # hierarchy at 16^3 (global inner products, the gathered coarse
+    # solve), PCG + ParILU at 24^2 and sharded PFMG at 64 x 32, each on two
+    # gloo processes against the same solve on a local 2-shard mesh: the
+    # same iterations and x to 1e-10
+    results = [rank["solves"] for rank in gloo_pair]
+    assert isinstance(results[0], dict), results[0]
+    for res in results:
+        *failures, iterations = res[path]
+        assert failures == [] and iterations > 0
+    assert results[0][path] == results[1][path]

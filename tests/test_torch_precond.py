@@ -350,9 +350,19 @@ def test_gather_submatrices_chunks(problems, monkeypatch):
 
 
 def test_distributed_operators_raise(problems):
+    # a ParEllMatrix takes the distributed path (its apply runs on the
+    # sharded vector); an operator of another type still raises
+    from hypre_tpu_torch.parallel import make_mesh, partition_ell
+    from hypre_tpu_torch.parallel.par_ell import distribute_vector
+
     _, tA = problems["5pt-12"]
+    mesh = make_mesh(4, device="cpu")
+    Ap = partition_ell(tA, mesh)
+    r = distribute_vector(np.ones(tA.n_rows), mesh)
     for name in ("Euclid", "PILUT", "ParaSails"):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        z = getattr(TP, name)().setup(Ap).precond()(r)
+        assert z.shape == r.shape and bool(torch.isfinite(z).all())
+        with pytest.raises(TypeError, match="EllMatrix or a ParEllMatrix"):
             getattr(TP, name)().setup(object(), device="cpu")
 
 
