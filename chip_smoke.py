@@ -197,19 +197,41 @@ Phases (any failure exits non-zero before the last line is printed):
     view is held against the plain version and timed. Then every path at
     DIST_SMALL^3 (DIST_SMALL_2D^2 for the 2-D struct one) in float64 on
     the card and on the CPU: equal iterations, x within DIST_X_TOL.
-19. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+19. hypre's tutorial examples and the device setup's replay. (a) The 18
+    examples of ``examples_torch/`` (``run_all.EXAMPLES``) on the card at
+    their default sizes, each through its own ``main`` and asserts, in
+    float32 (the ``run_all.FLOAT64`` ones in float64: ex1's standalone
+    SMG stalls above its assert's residual in float32); each prints its
+    seconds, iterations, the true relative residual of its first Krylov
+    solve and its launches (and why none, where none); then each in
+    float64, which must take the reference example's count
+    (EXAMPLE_ITERATIONS; ex11's eigenvalues to EX11_RTOL). (b) The
+    replay at the bench's configuration (7-pt N_MAIN^3 float32,
+    BENCH_KW with transfer_dia): REPLAY_RUNS slow setups (each records
+    the ladder) and REPLAY_RUNS replays, with the synchronizing calls of
+    each (``torch.cuda.set_sync_debug_mode``) and their seconds; a
+    replay must synchronize at most once, hold the slow path's tensors
+    bit for bit and give PCG the slow hierarchy's count; ``warmup(A)``'s
+    seconds; a same-shape operator with other values must have its
+    replay rejected (logged) and get its slow path's hierarchy. The run
+    keeps its shape registry in a temporary directory of its own.
+20. One ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 It needs one CUDA card; it imports nothing of JAX or of ``hypre_tpu``.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
+import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1631,8 +1653,12 @@ def device_setup_twice(H, torch):
             "two device setups hold different tensors")
     differ = [pa for (pa, a), (pb, b) in zip(first, second)
               if pa != pb or not torch.equal(a, b)]
+    replayed = [h.replayed for h in hiers]
     log(json.dumps({"device_setup_twice": f"{N_PARITY_BANDED}^3 float32",
-                    "tensors": len(first), "differ": differ}))
+                    "tensors": len(first), "differ": differ,
+                    "replayed": replayed}))
+    require(not any(replayed), "device_setup_twice replayed a setup: it "
+            "compares two slow-path setups")
     require(not differ, f"two device setups differ in {differ}")
 
 
@@ -1668,6 +1694,18 @@ def uncounted(kernels, fn):
         kernels.LAUNCHES.update(saved)
 
 
+def cuda_events(torch, prof) -> list:
+    """The card's events of a finished torch.profiler run, read from its
+    raw results: the events ``key_averages`` counts (hidden ones left
+    out), without the Python event it first builds for each, which cost
+    0.1-0.2 ms a kernel on the card's host (128 s of phase 13, whose
+    profiled solves run 10^4-10^5 kernels)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def device_kernels(torch, fn) -> int:
     """The CUDA kernels the card ran in one call of fn (torch.profiler):
     every op's launches, the ported kernels' included."""
@@ -1677,8 +1715,7 @@ def device_kernels(torch, fn) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return len(cuda_events(torch, prof))
 
 
 def hold_dia(M, label, kernels, torch, held):
@@ -3813,16 +3850,9 @@ def device_profile_counts(torch, fn, warm_s: float):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    count, dev_ms = 0, 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        count += e.count
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        dev_ms += us / 1e3
-    return count, dev_ms, dev_ms / (warm_s * 1e3)
+    events = cuda_events(torch, prof)
+    dev_ms = sum(e.duration_ns() for e in events) / 1e6
+    return len(events), dev_ms, dev_ms / (warm_s * 1e3)
 
 
 def par_products(H, kernels, torch):
@@ -4322,6 +4352,284 @@ def dist_solvers_card_vs_cpu(H, torch):
         require(err <= DIST_X_TOL, f"{key}: card x off the CPU's by {err}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: hypre's tutorial examples (examples_torch/) and the device
+# setup's replay of a recorded ladder
+# ---------------------------------------------------------------------------
+
+# The reference examples' counts, each run once under x64 on the CPU
+# (tests/test_torch_examples.py holds the port to the same numbers there).
+EXAMPLE_ITERATIONS = {
+    "ex1_struct_smg": 7, "ex2_struct_twobox": 3, "ex3_struct_pfmg_pcg": 8,
+    "ex4_struct_varcoef": 6, "ex5_ij_amg_pcg": 6, "ex6_sstruct_twobox": 4,
+    "ex7_sstruct_convection": 5, "ex8_sstruct_multipart": 13,
+    "ex9_sstruct_split": 21, "ex10_fei_fem": 6, "ex12_sstruct_nodal": 6,
+    "ex13_star_domain": 6, "ex14_sstruct_fem_star": 1, "ex15_ams": 9,
+    "ex16_q3_fem": 35, "ex17_ndim_laplacian": 18, "ex18_sstruct_ndim": 13,
+}
+EX11_EIGENVALUES = [0.018112309707972264, 0.04519876032919598,
+                    0.04519876033229112, 0.07228521095799656]
+EX11_RTOL = 1e-6
+# Device setups of each path in the replay phase (the median is logged)
+REPLAY_RUNS = 3
+NO_LAUNCH_REASON = ("no DIA view, and every ELL operator is below "
+                    "fastmv.MIN_BANDED_ELEMENTS stored elements, so the "
+                    "plain gather runs")
+
+
+def examples_module():
+    """``examples_torch/run_all.py`` (its directory put on the path)."""
+    path = os.path.join(HERE, "examples_torch")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import run_all
+
+    return run_all
+
+
+class captured_solves:
+    """Within the block, every ``pcg``/``gmres`` an example calls (by its
+    own import or through ``hypre_tpu_torch.krylov``) appends (A, b, x)
+    to ``solves``: the true residual is then b - A(x), whatever the
+    solver reported."""
+
+    def __init__(self, mod, solves):
+        from hypre_tpu_torch import krylov
+
+        self.targets = [(m, name) for m in (mod, krylov)
+                        for name in ("pcg", "gmres") if hasattr(m, name)]
+        self.solves = solves
+        self.saved = []
+
+    def __enter__(self):
+        for m, name in self.targets:
+            real = getattr(m, name)
+            self.saved.append((m, name, real))
+
+            def wrapped(A, b, *args, _real=real, **kw):
+                x, info = _real(A, b, *args, **kw)
+                self.solves.append((A, b.to(x.device), x))
+                return x, info
+
+            setattr(m, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, real in self.saved:
+            setattr(m, name, real)
+
+
+def example_run(run_all, name, kernels, torch, dtype):
+    """One example on the card: (what main returned, record)."""
+    mod = run_all.load(name)
+    solves = []
+    kernels.reset_launches()
+    with captured_solves(mod, solves):
+        res, s = synced(torch, lambda: mod.main(device="cuda", dtype=dtype))
+    launches = dict(kernels.LAUNCHES)
+    rec = {"example": name, "dtype": str(dtype).split(".")[-1],
+           "seconds": s, "launches": launches}
+    if name == "ex11_lobpcg":
+        rec["eigenvalues"] = sorted(res.cpu().tolist())
+    else:
+        rec["iterations"] = int(res.iterations)
+        rec["relative_residual"] = float(res.relative_residual)
+    if solves:
+        A, b, x = solves[0]
+        rec["true_relative_residual"] = float(
+            torch.linalg.vector_norm(b - A(x)) / torch.linalg.vector_norm(b))
+        rec["solves"] = len(solves)
+    if not any(launches.values()):
+        rec["no_launch_reason"] = NO_LAUNCH_REASON
+    return res, rec
+
+
+def examples_phase(H, kernels, torch):
+    """Phase 19a: the 18 tutorial examples of ``examples_torch/`` on the
+    card at their default sizes, each through its own ``main`` and
+    asserts: in float32 (the ``run_all.FLOAT64`` ones in float64, their
+    asserts asking for more than float32 gives), logging seconds,
+    iterations, the true relative residual of its first Krylov solve and
+    the launches of each kernel; then each in float64, which must take the
+    reference example's count (ex11: its eigenvalues to EX11_RTOL).
+    Returns the phase's launches."""
+    run_all = examples_module()
+    require(sorted(run_all.EXAMPLES) == sorted(
+        [*EXAMPLE_ITERATIONS, "ex11_lobpcg"]), "examples_torch/ changed")
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for f64 in (False, True):
+        for name in run_all.EXAMPLES:
+            dtype = (torch.float64 if f64 or name in run_all.FLOAT64
+                     else torch.float32)
+            res, rec = example_run(run_all, name, kernels, torch, dtype)
+            rec["run"] = "card_vs_cpu" if f64 else "float32"
+            for k, v in rec["launches"].items():
+                total[k] += v
+            if f64:
+                if name == "ex11_lobpcg":
+                    got = rec["eigenvalues"]
+                    ok = np.allclose(got, EX11_EIGENVALUES, rtol=EX11_RTOL)
+                    rec["reference"] = EX11_EIGENVALUES
+                else:
+                    ok = rec["iterations"] == EXAMPLE_ITERATIONS[name]
+                    rec["reference"] = EXAMPLE_ITERATIONS[name]
+                rec["equal_to_reference"] = bool(ok)
+            log(json.dumps(rec))
+            if f64:
+                require(ok, f"{name} in float64 on the card: {rec} is not "
+                        "the reference example's")
+    log(json.dumps({"phase": "examples_phase", "launches": total}))
+    return total
+
+
+def sync_counted(torch, fn):
+    """fn() under ``torch.cuda.set_sync_debug_mode("warn")``: (result,
+    seconds until the card is done, synchronizing calls made, the
+    ``cudaMalloc`` calls the caching allocator made meanwhile: new
+    segments and their bytes, and allocations it retried after freeing
+    its cache)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+    after = torch.cuda.memory_stats()
+    alloc = {name: after.get(key, 0) - before.get(key, 0) for name, key in (
+        ("new_segments", "segment.all.allocated"),
+        ("new_segment_bytes", "reserved_bytes.all.allocated"),
+        ("alloc_retries", "num_alloc_retries"))}
+    return out, s, sum("synchroniz" in str(w.message) for w in caught), alloc
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def same_tensors(torch, a, b) -> list:
+    """Paths of the tensors in which two hierarchies differ."""
+    ta, tb = list(tensors_of(a, torch)), list(tensors_of(b, torch))
+    require(len(ta) == len(tb) > 20, "hierarchies hold different tensors")
+    return [pa for (pa, x), (pb, y) in zip(ta, tb)
+            if pa != pb or x.shape != y.shape or not torch.equal(x, y)]
+
+
+def replay_phase(H, kernels, torch):
+    """Phase 19b: the device setup's replay at the bench's configuration
+    (7-pt N_MAIN^3 float32, BENCH_KW with transfer_dia): REPLAY_RUNS slow
+    setups (HYPRE_TPU_NO_FAST_SETUP=1; each records the ladder) and
+    REPLAY_RUNS replays, with the synchronizing calls of each
+    (``set_sync_debug_mode``), their seconds and the allocator's new
+    segments; the one phase that runs with the replay on (main sets
+    HYPRE_TPU_NO_FAST_SETUP=1 for the others). Every replay must hold
+    the slow path's tensors bit for bit, and PCG on it take the slow
+    hierarchy's count. Then ``warmup(A)``'s seconds, and a same-shape
+    operator with other values, whose replay must be rejected (logged)
+    and whose hierarchy must be its slow path's. Returns the launches."""
+    from hypre_tpu_torch import warmup
+
+    kernels.reset_launches()
+    kw = dict(BENCH_KW, transfer_dia=True)
+    A = H.laplacian_3d_7pt(N_MAIN, N_MAIN, N_MAIN, dtype=torch.float32,
+                           device="cuda")
+
+    def setups(no_fast: bool, op):
+        if no_fast:
+            os.environ["HYPRE_TPU_NO_FAST_SETUP"] = "1"
+        try:
+            return [sync_counted(torch, lambda: H.setup_hierarchy_device(
+                op, device="cuda", **kw)) for _ in range(REPLAY_RUNS)]
+        finally:
+            os.environ.pop("HYPRE_TPU_NO_FAST_SETUP", None)
+
+    slow = setups(True, A)
+    replays = setups(False, A)
+    require(not any(h.replayed for h, *_ in slow)
+            and all(h.replayed for h, *_ in replays),
+            "the replay was not taken where it should be")
+    ref = slow[0][0]
+    for i, (h, *_) in enumerate(slow[1:] + replays):
+        differ = same_tensors(torch, ref, h)
+        require(not differ, f"setup {i + 2} differs from the slow path's "
+                f"in {differ}")
+    iters = []
+    for h in (ref, replays[-1][0]):
+        fast = H.optimize_hierarchy(h, gather_precision=0, device="cuda")
+        b = padded_ones(fast, A.n_rows, torch, torch.float32, "cuda")
+        x, info = solve(H, fast, fast.levels[0].A, b, "cuda", 1e-6)
+        require(bool(info.converged), "PCG on the replay phase's hierarchy "
+                "did not converge")
+        iters.append(int(info.iterations))
+    require(iters[0] == iters[1], f"PCG took {iters} iterations on the slow "
+            "and the replayed hierarchy")
+    rec = {"replay": f"7-pt {N_MAIN}^3 float32", "knobs": kw,
+           "levels": list(ref.n_level_true), "pcg_iterations": iters[0]}
+    for tag, runs in (("slow", slow), ("replay", replays)):
+        secs = [s for _, s, _, _ in runs]
+        rec[tag] = {"seconds": secs,
+                    "median_warm_seconds": float(np.median(secs[1:])),
+                    "synchronizing_calls": [n for _, _, n, _ in runs],
+                    "allocator": [a for _, _, _, a in runs]}
+    log(json.dumps(rec))
+    require(max(rec["replay"]["synchronizing_calls"]) <= 1,
+            "the replay synchronized more than once: "
+            f"{rec['replay']['synchronizing_calls']}")
+    del slow, replays, ref
+
+    secs, s = synced(torch, lambda: warmup.warmup(A, device="cuda"))
+    log(json.dumps({"warmup_seconds": secs, "host_seconds": s,
+                    "shape": f"7-pt {N_MAIN}^3 float32"}))
+
+    # a same-shape operator with other values (random couplings on the
+    # 7-pt pattern): its CF split differs, so the replay must be rejected
+    rng = np.random.default_rng(11)
+    cols = A.cols.cpu()
+    rows = torch.arange(A.n_rows)[:, None]
+    off = (cols >= 0) & (cols != rows)
+    w = torch.from_numpy(rng.uniform(0.2, 5.0, tuple(cols.shape))
+                         .astype(np.float32))
+    vals = torch.where(off, -w, torch.zeros_like(w))
+    vals = torch.where(cols == rows, 0.1 - vals.sum(dim=1, keepdim=True),
+                       vals)
+    A2 = dataclasses.replace(A, vals=vals.to("cuda"))
+    seen = _Records()
+    logger = logging.getLogger("hypre_tpu_torch.amg.device_setup")
+    logger.addHandler(seen)
+    try:
+        h2 = H.setup_hierarchy_device(A2, device="cuda", **kw)
+    finally:
+        logger.removeHandler(seen)
+    os.environ["HYPRE_TPU_NO_FAST_SETUP"] = "1"
+    try:
+        h2_slow = H.setup_hierarchy_device(A2, device="cuda", **kw)
+    finally:
+        os.environ.pop("HYPRE_TPU_NO_FAST_SETUP", None)
+    rejected = [m for m in seen.messages if "rejected" in m]
+    differ = same_tensors(torch, h2, h2_slow)
+    log(json.dumps({"replay_of_another_operator": rejected,
+                    "replayed": h2.replayed,
+                    "levels": list(h2.n_level_true),
+                    "differ_from_its_slow_path": differ}))
+    require(not h2.replayed and rejected,
+            "the replay was not rejected where it should be")
+    require(not differ, f"the rejected replay's hierarchy differs from its "
+            f"slow path's in {differ}")
+    launches = dict(kernels.LAUNCHES)
+    log(json.dumps({"phase": "replay_phase", "launches": launches}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4329,6 +4637,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # a shape registry of the run's own: every ladder a setup replays, an
+    # earlier setup of this run recorded
+    registry = tempfile.mkdtemp(prefix="chip_smoke_registry_")
+    atexit.register(shutil.rmtree, registry, True)
+    os.environ["HYPRE_TPU_TORCH_SHAPE_REGISTRY"] = os.path.join(
+        registry, "shapes.json")
+    # phases 1-18 run, time and compare the device setup's slow path; the
+    # replay phase alone turns the replay on
+    os.environ["HYPRE_TPU_NO_FAST_SETUP"] = "1"
     import hypre_tpu_torch as H
     from hypre_tpu_torch import kernels
 
@@ -4467,6 +4784,15 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_solvers_card_vs_cpu(H, torch)
     phase_done("dist_solvers_card_vs_cpu", t0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_phases.append(examples_phase(H, kernels, torch))
+    phase_done("examples_phase", t0)
+    t0 = time.perf_counter()
+    del os.environ["HYPRE_TPU_NO_FAST_SETUP"]
+    new_phases.append(replay_phase(H, kernels, torch))
+    os.environ["HYPRE_TPU_NO_FAST_SETUP"] = "1"
+    phase_done("replay_phase", t0)
     log(json.dumps({"run_seconds": time.perf_counter() - t_run}))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -21,6 +21,7 @@ solve runs the DIA and banded kernels.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -36,6 +37,22 @@ from hypre_tpu_torch.core.config import (
 )
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.vector import dot
+
+
+def _prime(A: EllMatrix) -> bool:
+    """The device backend's priming hook (the reference's
+    ``boomeramg.py:125-140``): warn when A's setup signature is novel,
+    record its shape and signature, and say whether the specialized solve
+    applies (a known signature whose exact shape was seen before). The
+    shape is recorded on first sight, also when the signature is novel."""
+    from hypre_tpu_torch import warmup
+
+    novel, msg = warmup.novel_shape_report(A)
+    if novel:
+        warnings.warn(f"hypre_tpu_torch: {msg}", stacklevel=3)
+    seen = warmup.shape_seen(A)
+    warmup._record_setup_signature(A)
+    return (not novel) and seen
 
 
 @dataclasses.dataclass
@@ -129,8 +146,17 @@ class BoomerAMG:
         The native setup is host code whichever is named: it builds each
         level's tensors on the device once.
         optimize: swap the level operators for the kernel formats (DIA,
-        banded); 'auto' = when the device is CUDA."""
+        banded); 'auto' = when the device is CUDA.
+
+        With setup_backend='device' the setup is primed as the reference's
+        is: a warning when A's setup signature is new to the shape
+        registry (``warmup.novel_shape_report``), the specialized solve
+        (static DIA offsets) when its exact shape was seen before, and both
+        recorded on first sight."""
         target = resolve_device(device)
+        spec = False
+        if self.setup_backend == "device":
+            spec = _prime(A)
         if self.setup_backend == "device" or host_setup == "auto":
             host_setup = False
         if optimize == "auto":
@@ -142,7 +168,7 @@ class BoomerAMG:
             hier = optimize_hierarchy(
                 hier, prefer_pallas=True,
                 gather_precision=self.gather_precision,
-                specialize=self.specialize, device=where)
+                specialize=self.specialize or spec, device=where)
             if self.relax == "kaczmarz":
                 # its sweeps run A.mv_t on every level
                 hier = with_operator_transposes(hier)

@@ -20,12 +20,15 @@ The setup is driven by a host loop that reads back one count per level and
 one flag per PMIS round. Slab widths are guessed from the reference's
 tables and grown when a merge reports a larger requirement; the stored
 widths (P, Pt, coarse A) are the reference's, because
-``optimize_operator`` picks the solve format from them. The reference's
-fast replay of a recorded setup is not part of this module.
+``optimize_operator`` picks the solve format from them. A completed setup
+records its ladder of sizes and widths, and a later setup of the same
+shape and knobs replays it with a single read-back at its end (the
+reference's fast setup; see "The recorded ladder and its replay").
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import sys
 import time
@@ -47,6 +50,7 @@ from hypre_tpu_torch.seq.slabops import (
 C_PT = 1
 F_PT = -1
 _BIG = 2**30
+_LOG = logging.getLogger(__name__)
 
 # element budget for shift-structured candidate slabs: beyond this the slot
 # loop is blocked into progressive merges (several copies of the slab live
@@ -88,8 +92,19 @@ def _scatter_add_counts(cols, mask, n_cols: int, shifts):
     """out[j] = #{(i,s): mask & cols[i,s]==j} (strength-transpose counts)."""
     if shifts is not None:
         return shift_scatter_add_dyn(mask.to(torch.int32), shifts)
-    return torch.bincount(cols[mask].long(), minlength=n_cols) \
-        .to(torch.int32)[:n_cols]
+    return torch.zeros(n_cols, dtype=torch.int32, device=cols.device) \
+        .scatter_add_(0, _slot_targets(cols, mask, n_cols).reshape(-1),
+                      mask.to(torch.int32).reshape(-1))
+
+
+def _slot_targets(cols, mask, n_cols: int) -> torch.Tensor:
+    """Scatter targets of a slab's slots, mask-free: a masked slot's
+    column, any other slot its own row (clamped into the column space),
+    where it adds a neutral value. No read-back, and no one address that
+    every unmasked slot's atomic contends for."""
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None] \
+        .clamp(max=max(n_cols - 1, 0))
+    return torch.where(mask, cols.long(), rows)
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +170,17 @@ def pmis_device(scols: torch.Tensor, n: int, shifts=None,
     measure is float32 whatever the matrix type. One flag is read back per
     round.
     """
+    return _pmis(scols, n, shifts, global_row_offset, s_valid)[0]
+
+
+def _pmis(scols, n, shifts=None, global_row_offset=0, s_valid=None,
+          rounds=None):
+    """``pmis_device`` returning (cf, rounds run, decided). With
+    ``rounds`` (a count an earlier run recorded) exactly that many rounds
+    run, nothing is read back, and ``decided`` is a device bool (every
+    point C or F); else ``decided`` is None. A round after every point is
+    decided changes nothing, so the two agree whenever ``rounds``
+    suffices."""
     shifts = _as_pack(shifts, n)
     dev = scols.device
     S = scols >= 0 if s_valid is None else s_valid
@@ -166,26 +192,24 @@ def pmis_device(scols: torch.Tensor, n: int, shifts=None,
     has_strong_row = S.any(dim=1)
     isolated = ~has_strong_row & (st_counts == 0)
     if shifts is None:
-        # the column-side max scatters the strong slots only: an overflow
-        # address for the others would make every weak slot's atomic
-        # contend for it
-        strong_rows, strong_slots = S.nonzero(as_tuple=True)
-        strong_cols = scols[strong_rows, strong_slots].long()
         cols_l = cols_c.long()
+        # the column-side max scatters every slot: a strong one its
+        # measure to its column, any other a 0 (the measures are >= 0) to
+        # its own row
+        targets = _slot_targets(scols, S, n).reshape(-1)
 
-    cf = torch.where(isolated, F_PT, 0).to(torch.int32)
-    while bool((cf == 0).any()):
+    def one_round(cf):
         prev = cf
         undecided = cf == 0
         m = _where_val(undecided, measure)
+        m_slots = _where_val(S, m[:, None].expand(S.shape))
         if shifts is not None:
             g = shift_gather_dyn(m, shifts)
-            col_nbr_max = shift_scatter_max_dyn(
-                _where_val(S, m[:, None].expand(S.shape)), shifts, fill=0.0)
+            col_nbr_max = shift_scatter_max_dyn(m_slots, shifts, fill=0.0)
         else:
             g = m[cols_l]
             col_nbr_max = torch.zeros(n, dtype=m.dtype, device=dev) \
-                .scatter_reduce(0, strong_cols, m[strong_rows], "amax",
+                .scatter_reduce(0, targets, m_slots.reshape(-1), "amax",
                                 include_self=True)
         row_nbr_max = _where_val(S, g).amax(dim=1) if S.shape[1] else \
             torch.zeros_like(m)
@@ -200,8 +224,18 @@ def pmis_device(scols: torch.Tensor, n: int, shifts=None,
         # stall guard: a round that changed nothing turns every undecided
         # point into C
         stalled = (cf == prev).all()
-        cf = torch.where(stalled & (cf == 0), C_PT, cf).to(torch.int32)
-    return cf
+        return torch.where(stalled & (cf == 0), C_PT, cf).to(torch.int32)
+
+    cf = torch.where(isolated, F_PT, 0).to(torch.int32)
+    if rounds is None:
+        done = 0
+        while bool((cf == 0).any()):
+            cf = one_round(cf)
+            done += 1
+        return cf, done, None
+    for _ in range(rounds):
+        cf = one_round(cf)
+    return cf, rounds, (cf != 0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -585,12 +619,14 @@ def transpose_slab(cols: torch.Tensor, vals: torch.Tensor, n_cols: int,
     required_k = (torch.where(valid_s, slot, -1).max() + 1).to(torch.int32) \
         if n * k else torch.zeros((), dtype=torch.int32, device=dev)
     in_range = valid_s & (slot < out_k)
-    t_vals = torch.zeros((n_cols, out_k), dtype=vals.dtype, device=dev)
-    t_cols = torch.full((n_cols, out_k), PAD_COL, dtype=torch.int32,
-                        device=dev)
-    dst = (sc[in_range], slot[in_range])
-    t_vals[dst] = sv[in_range]
-    t_cols[dst] = sr[in_range].to(torch.int32)
+    # flat destinations, the entries past out_k and the padding into one
+    # spare slot that is cut off (no mask, so no read-back)
+    size = n_cols * out_k
+    dst = torch.where(in_range, sc * out_k + slot, size)
+    t_vals = torch.zeros(size + 1, dtype=vals.dtype, device=dev) \
+        .scatter_(0, dst, sv)[:size].view(n_cols, out_k)
+    t_cols = torch.full((size + 1,), PAD_COL, dtype=torch.int32, device=dev) \
+        .scatter_(0, dst, sr.to(torch.int32))[:size].view(n_cols, out_k)
     return t_cols, t_vals, required_k
 
 
@@ -682,11 +718,13 @@ def _coarse_inv(vals, cols, n_true: int, pinv: bool = False):
     get identity entries. Returns (inverse, max|A inv - I|)."""
     nc = cols.shape[0]
     dtype, dev = vals.dtype, vals.device
-    rows = torch.arange(nc, device=dev)[:, None].expand(cols.shape)
-    valid = cols >= 0
-    dense = torch.zeros((nc, nc), dtype=dtype, device=dev)
-    # a row holds each column once: every destination is written once
-    dense[rows[valid], cols[valid].long()] = vals[valid]
+    rows = torch.arange(nc, device=dev)[:, None]
+    # a row holds each column once: every destination is written once; the
+    # padding slots go to one spare entry that is cut off
+    dst = torch.where(cols >= 0, rows * nc + cols.long(), nc * nc)
+    dense = torch.zeros(nc * nc + 1, dtype=dtype, device=dev) \
+        .scatter_(0, dst.reshape(-1), vals.reshape(-1))[:nc * nc] \
+        .view(nc, nc)
     pad_eye = (torch.arange(nc, device=dev) >= n_true).to(dtype)
     dense = dense + torch.diag(pad_eye)
     if pinv:
@@ -698,10 +736,15 @@ def _coarse_inv(vals, cols, n_true: int, pinv: bool = False):
     return inv, resid
 
 
-def _trim(cols, vals, req: int):
-    """Slice a merged slab to the bucket of its true width: padded width
-    is what every downstream slab cost scales with."""
-    w = min(_bucket(max(int(req), 1)), cols.shape[1])
+def _trim_width(req, width: int) -> int:
+    """The bucket of a merged slab's true width ``req``, at most its
+    ``width``: padded width is what every downstream slab cost scales
+    with."""
+    return min(_bucket(max(int(req), 1)), width)
+
+
+def _trim(cols, vals, w: int):
+    """The first ``w`` columns of a slab."""
     if w == cols.shape[1]:
         return cols, vals
     return cols[:, :w].contiguous(), vals[:, :w].contiguous()
@@ -769,6 +812,85 @@ def _grown(product, out_k: int):
     return c, v, req, out_k
 
 
+def _grown_width(guess: int, req: int) -> int:
+    """The width ``_grown`` ends at from ``guess`` when the merge needs
+    ``req`` columns."""
+    return guess if req <= guess else _bucket(req)
+
+
+# ---------------------------------------------------------------------------
+# The recorded ladder and its replay (the reference's fast setup)
+# ---------------------------------------------------------------------------
+#
+# A slow-path setup records its LADDER in the shape registry (warmup.py),
+# under the exact shape and a fingerprint of the knobs: per level the
+# coarse size, the width each product ended at, the trimmed widths, the
+# PMIS round counts, the multipass count, and the transfer's offsets and
+# windows. A later setup of the same shape and knobs replays it: each
+# product runs once at its recorded width, each PMIS its recorded rounds,
+# and nothing is read back until the end, where one read fetches every
+# quantity the slow path reads on its way. The replay is accepted only
+# when each of them would have led the slow path to the recorded value,
+# so an accepted replay builds the slow path's hierarchy bit for bit; on a
+# mismatch (a same-shape operator with another split, a width it
+# outgrows) it is discarded and the slow path runs.
+
+
+def _knobs_sig(**kw) -> str:
+    return "|".join(f"{k}={kw[k]}" for k in sorted(kw))
+
+
+def _ladder_get(sig: str, ksig: str):
+    from hypre_tpu_torch.warmup import read_registry
+
+    return read_registry().get(f"ladder|{sig}|{ksig}")
+
+
+def _ladder_put(sig: str, ksig: str, ladder: dict) -> None:
+    from hypre_tpu_torch.warmup import update_registry
+
+    update_registry({f"ladder|{sig}|{ksig}": ladder})
+
+
+def _read_back(t: torch.Tensor) -> list:
+    """The replay's one read of the device."""
+    return t.cpu().tolist()
+
+
+class _Deferred:
+    """What a replay reads at its end: device tensors, each with the test
+    its host values must pass."""
+
+    def __init__(self):
+        self.parts, self.tests = [], []
+
+    def add(self, what: str, t: torch.Tensor, test) -> None:
+        t = t.reshape(-1)
+        self.parts.append(t.to(torch.float64))
+        self.tests.append((what, t.numel(), test))
+
+    def first_failure(self) -> str | None:
+        """Read every part back at once; the first test that fails, or
+        None."""
+        vals = _read_back(torch.cat(self.parts)) if self.parts else []
+        pos = 0
+        for what, m, test in self.tests:
+            got = vals[pos:pos + m] if m > 1 else vals[pos]
+            pos += m
+            if not test(got):
+                return f"{what}: {got}"
+        return None
+
+
+def _offsets_match(offs: tuple):
+    """Test of a ``probe_offsets_device`` result: exactly ``offs``."""
+    def test(uniq):
+        d = len(offs)
+        return (list(uniq[:d]) == list(offs)
+                and (d >= len(uniq) or uniq[d] >= _BIG))
+    return test
+
+
 def setup_hierarchy_device(
     A: EllMatrix,
     strength_threshold: float = 0.25,
@@ -805,7 +927,7 @@ def setup_hierarchy_device(
     transpose alignment pass; pattern symmetry is assumed either way).
     width_plan: a dict (shared across calls) that is filled with the slab
     widths each level used and read back as the first guess on a repeat
-    setup with the same sparsity. Nothing is persisted.
+    setup with the same sparsity.
     coarse_drop_tol: symmetric relative drop tolerance applied to every
     Galerkin operator, dropped mass lumped onto the diagonal.
     transfer_dia: store the stencil level's interpolation as fine-space
@@ -814,11 +936,22 @@ def setup_hierarchy_device(
     with empty rows. The returned hierarchy's fine level is then the
     PADDED operator; ``n_fine`` records the true row count,
     ``n_level_true`` every level's, and ``amg_cycle`` pads and unpads
-    vectors itself.
+    vectors itself. A setup with ``row_bucket`` records its ladder in the
+    shape registry (``warmup.py``), and a later setup of the same shape
+    and knobs replays it with one read of the device (see above); the
+    hierarchy's ``replayed`` says which path built it, and a rejected
+    replay is logged. ``HYPRE_TPU_NO_FAST_SETUP=1`` turns the replay off
+    (the ladder is still recorded).
     stage_times: when a dict, host seconds per setup stage are added to it
     (each stage bracketed by a device synchronize, which slows the setup).
+    Such a setup always takes the slow path, whose stages these are.
     """
     from hypre_tpu_torch.amg.hierarchy import AMGHierarchy, Level
+    from hypre_tpu_torch.seq.transfer_dia import (
+        _c2f_from_cf, build_transfer_dia, probe_offsets_device,
+        probe_transfer_offsets, windows_of,
+    )
+    from hypre_tpu_torch.warmup import shape_key
 
     log_on = bool(os.environ.get("HYPRE_TPU_LOG_SETUP"))
     t_start = time.perf_counter()
@@ -851,172 +984,291 @@ def setup_hierarchy_device(
     plan = width_plan if width_plan is not None else {}
     need_cheby = relax == "chebyshev"
     dtype = A.dtype
-    levels: List[Level] = []
     shifts_host = A.shifts
     n_fine = A.n_rows
-    n_true = A.n_rows
-    true_sizes = [n_true]  # per-level true row counts incl. the coarsest
     if row_bucket:
-        nb = _row_bucket(n_true)
-        if nb != n_true:
+        nb = _row_bucket(n_fine)
+        if nb != n_fine:
             pv_, pc_ = _pad_rows(A.vals, A.cols, nb)
             # padded rows are empty, so the shifts annotation still holds
             # at every VALID slot and the fine level keeps its DIA kernels
             A = EllMatrix(vals=pv_, cols=pc_, n_cols=nb, shifts=shifts_host)
-            log(f"row bucket: {n_true} -> {nb}")
-    shifts = None
+            log(f"row bucket: {n_fine} -> {nb}")
+    shifts0 = None
     if shifts_host is not None:
-        shifts = make_stencil_pack(shifts_host, A.n_rows, with_d2=True)
-    A_cur = A
+        shifts0 = make_stencil_pack(shifts_host, A.n_rows, with_d2=True)
 
-    while len(levels) < max_levels - 1 and n_true > max_coarse_size:
-        n, kA = A_cur.cols.shape
-        aggressive = len(levels) < agg_num_levels
-        s_cap_l = min(s_cap, A_cur.k)
+    def build(rec):
+        """The level loop: the slow path (rec None), reading back what it
+        needs as it goes, or the replay of the ladder ``rec``. Returns
+        (hierarchy, ladder to record or None, why a replay failed)."""
+        replay = rec is not None
+        checks = _Deferred()
+        levels: List[Level] = []
+        recs, updates = [], {}
+        n_true = n_fine
+        true_sizes = [n_true]  # per-level true row counts incl. coarsest
+        A_cur, shifts = A, shifts0
+        complete = True  # whether the slow path's ladder can be replayed
+        while len(levels) < max_levels - 1 and n_true > max_coarse_size:
+            lev_id = len(levels)
+            n, kA = A_cur.cols.shape
+            rl = None
+            if replay:
+                if lev_id >= len(rec["levels"]):
+                    return None, None, "the ladder has fewer levels"
+                rl = rec["levels"][lev_id]
+                if rl["kA"] != kA:
+                    return None, None, f"L{lev_id} width {kA}"
+            aggressive = lev_id < agg_num_levels
+            s_cap_l = min(s_cap, kA)
 
-        def split():
-            _, scols, svals, sback = strength_and_cap(
-                A_cur, strength_threshold, s_cap_l, shifts,
-                with_back=not aggressive and not symmetric, mxrs=max_row_sum)
-            cf = pmis_device(scols, n, shifts=shifts)
-            if aggressive:
-                cf = second_pass_pmis(scols, cf, n, _bucket(4 * s_cap_l),
-                                      shifts)
-            cmap, n_c = _coarse_map(cf)
-            return scols, svals, sback, cf, cmap, int(n_c)
+            def split():
+                _, scols, svals, sback = strength_and_cap(
+                    A_cur, strength_threshold, s_cap_l, shifts,
+                    with_back=not aggressive and not symmetric,
+                    mxrs=max_row_sum)
+                cf, r1, d1 = _pmis(scols, n, shifts=shifts,
+                                   rounds=rl["pmis"] if replay else None)
+                r2, d2 = 0, None
+                if aggressive:
+                    cf, r2, d2 = _second_pass(
+                        scols, cf, n, _bucket(4 * s_cap_l), shifts,
+                        rounds=rl["pmis2"] if replay else None)
+                cmap, n_c = _coarse_map(cf)
+                return scols, svals, sback, cf, cmap, n_c, (r1, d1, r2, d2)
 
-        scols, svals, sback, cf, cmap, n_coarse = staged("split", split)
-        dinv, l1inv, lmax = staged(
-            "vectors",
-            lambda: _level_vectors(A_cur.vals, A_cur.cols, need_cheby))
-        nc_b = _row_bucket(n_coarse) if row_bucket else n_coarse
-        log(f"L{len(levels)} split done: n={n} -> n_c={n_coarse} "
-            f"(bucket {nc_b}, agg={aggressive})")
-        if n_coarse == 0 or n_coarse >= coarsen_rtol * n_true:
-            break
-        ks = scols.shape[1]
-        out_k = _bucket(min(max(2 * ks, 8), 64))
-        lev_id = len(levels)
-        kP = plan.get((lev_id, "p"), out_k if not aggressive else None)
-        # width guesses: plan hit > family default > generic formula. The
-        # family defaults are the reference's table of stationary widths
-        # (PMIS statistics are scale-free).
-        if aggressive and shifts is not None:
-            d_ap, d_t, d_ac = (
-                (12, 48, 40) if kA <= 9 else
-                (16, 224, 48) if kA <= 27 else
-                (_bucket(kA), _bucket(8 * kA), 64)
-            )
-        elif shifts is None and not aggressive:
-            d_ap, d_t, d_ac = 32, 64, 96  # canonical coarse-level profile
-        else:
-            d_ap = _bucket(min(kA * (kP or 8), 3 * kA + 8))
-            d_t = _bucket(max(int(4.0 * n_true / max(n_coarse, 1)), 8))
-            d_ac = _bucket(max(min(3 * kA, 256), 32))
-        out_ap = plan.get((lev_id, "ap"), d_ap)
-        out_t = plan.get((lev_id, "t"), d_t)
-        out_ac = plan.get((lev_id, "ac"), d_ac)
-        mp = plan.get((lev_id, "mp"), 3)
-
-        def interp():
-            nonlocal mp
-            if aggressive:
-                while True:
-                    pc, pv, _, unass = multipass_interp_device(
-                        A_cur, scols, svals, cf, cmap, max(p_max_elmts, 1),
-                        shifts=shifts, max_passes=mp)
-                    if int(unass) > 0 and mp < 6:
-                        # some F rows need more multipass rounds
-                        mp = 6
-                        continue
-                    return pc, pv
-            back_hat = None
-            if not symmetric:
-                # sign-filter the transpose values by the NEIGHBOUR row's
-                # diagonal sign
-                d = A_cur.diagonal()
-                sgn = torch.where(d >= 0, 1.0, -1.0).to(dtype)
-                g_sgn = _gather_rows(sgn, scols.clamp(min=0), shifts)
-                back_hat = _where_val(sback * g_sgn < 0, sback)
+            scols, svals, sback, cf, cmap, n_c, pm = staged("split", split)
+            if replay:
+                n_coarse = rl["nc"]
+                checks.add(f"L{lev_id} coarse size", n_c,
+                           lambda v, w=n_coarse: v == w)
+                for decided in (pm[1], pm[3]):
+                    if decided is not None:
+                        checks.add(f"L{lev_id} PMIS decided", decided, bool)
+            else:
+                n_coarse = int(n_c)
+            nc_b = _row_bucket(n_coarse) if row_bucket else n_coarse
+            if replay:
+                # coarse ids past the recorded coarse space would index out
+                # of it; a split with such ids fails its check, so the
+                # replay only has to stay in bounds until then
+                cmap = _where_col(cmap < nc_b, cmap)
+            dinv, l1inv, lmax = staged(
+                "vectors",
+                lambda: _level_vectors(A_cur.vals, A_cur.cols, need_cheby))
+            log(f"L{lev_id} split done: n={n} -> n_c={n_coarse} "
+                f"(bucket {nc_b}, agg={aggressive}, replay={replay})")
+            if n_coarse == 0 or n_coarse >= coarsen_rtol * n_true:
+                complete = False  # a loop ended by a stall is not recorded
+                break
+            ks = scols.shape[1]
+            out_k = _bucket(min(max(2 * ks, 8), 64))
+            kP = plan.get((lev_id, "p"), out_k if not aggressive else None)
+            # width guesses: plan hit > family default > generic formula.
+            # The family defaults are the reference's table of stationary
+            # widths (PMIS statistics are scale-free).
+            if aggressive and shifts is not None:
+                d_ap, d_t, d_ac = (
+                    (12, 48, 40) if kA <= 9 else
+                    (16, 224, 48) if kA <= 27 else
+                    (_bucket(kA), _bucket(8 * kA), 64)
+                )
+            elif shifts is None and not aggressive:
+                d_ap, d_t, d_ac = 32, 64, 96  # canonical coarse-level profile
+            else:
+                d_ap = _bucket(min(kA * (kP or 8), 3 * kA + 8))
+                d_t = _bucket(max(int(4.0 * n_true / max(n_coarse, 1)), 8))
+                d_ac = _bucket(max(min(3 * kA, 256), 32))
+            guess_ap = plan.get((lev_id, "ap"), d_ap)
+            guess_t = plan.get((lev_id, "t"), d_t)
+            guess_ac = plan.get((lev_id, "ac"), d_ac)
             ch_i = _nchunks(n, ks * ks + ks + 1)
-            pc, pv, _ = ext_plus_i_device(
-                A_cur, scols, svals, cf, out_k, p_max_elmts=p_max_elmts,
-                trunc_factor=float(trunc_factor), shifts=shifts,
-                back_hat=back_hat, chunks=ch_i)
-            return remap_fine_to_coarse(pc, pv, cmap)
 
-        pc, pv = staged("interp", interp)
-        ch_ap = _nchunks(n, kA * (kP or out_k))
+            def interp():
+                mp = rl["mp"] if replay else plan.get((lev_id, "mp"), 3)
+                if aggressive:
+                    while True:
+                        pc, pv, _, unass = multipass_interp_device(
+                            A_cur, scols, svals, cf, cmap,
+                            max(p_max_elmts, 1), shifts=shifts,
+                            max_passes=mp)
+                        if replay:
+                            # passes past the last assigned one change
+                            # nothing, so 6 passes stand for 3 as well
+                            checks.add(f"L{lev_id} multipass", unass,
+                                       lambda u, mp=mp: u == 0 or mp >= 6)
+                        elif int(unass) > 0 and mp < 6:
+                            # some F rows need more multipass rounds
+                            mp = 6
+                            continue
+                        return pc, pv, mp
+                back_hat = None
+                if not symmetric:
+                    # sign-filter the transpose values by the NEIGHBOUR
+                    # row's diagonal sign
+                    d = A_cur.diagonal()
+                    sgn = torch.where(d >= 0, 1.0, -1.0).to(dtype)
+                    g_sgn = _gather_rows(sgn, scols.clamp(min=0), shifts)
+                    back_hat = _where_val(sback * g_sgn < 0, sback)
+                pc, pv, _ = ext_plus_i_device(
+                    A_cur, scols, svals, cf, out_k, p_max_elmts=p_max_elmts,
+                    trunc_factor=float(trunc_factor), shifts=shifts,
+                    back_hat=back_hat, chunks=ch_i)
+                return (*remap_fine_to_coarse(pc, pv, cmap), mp)
 
-        def a_times_p():
-            apc, apv, req, w = _grown(
-                lambda w: spgemm_slab(A_cur.cols, A_cur.vals, pc, pv, w,
-                                      shifts=shifts, chunks=ch_ap), out_ap)
-            if ap_cap and ap_cap < w:
-                apc, apv = cap_slab(apc, apv, ap_cap, lump_largest=True)
-            return apc, apv, req, w
+            pc, pv, mp = staged("interp", interp)
+            ch_ap = _nchunks(n, kA * (kP or out_k))
 
-        apc, apv, req_ap, out_ap = staged("AP", a_times_p)
-        tc, tv, req_t, out_t = staged("transpose", lambda: _grown(
-            lambda w: transpose_slab(pc, pv, nc_b, w), out_t))
-        acc, acv, req_ac, out_ac = staged("RAP", lambda: _grown(
-            lambda w: spgemm_slab(tc, tv, apc, apv, w,
-                                  chunks=_nchunks(nc_b, out_t * out_ap)),
-            out_ac))
-        if coarse_drop_tol > 0:
-            acc, acv = staged("drop", lambda: drop_and_lump(
-                acc, acv, float(coarse_drop_tol)))
-        rowmax = int((acc >= 0).sum(dim=1).max())
-        log(f"L{lev_id} built: req_ap={req_ap} req_t={req_t} "
-            f"req_ac={req_ac} rowmax={rowmax}")
-        plan[(lev_id, "p")] = pc.shape[1]
-        plan[(lev_id, "mp")] = mp
-        plan[(lev_id, "ap")] = out_ap
-        plan[(lev_id, "t")] = out_t
-        plan[(lev_id, "ac")] = out_ac
-        tc, tv = _trim(tc, tv, req_t)
-        acc, acv = _trim(acc, acv, rowmax)
+            def grow(product, guess, key):
+                """``_grown``; in a replay, one run at the recorded width
+                and a deferred check that ``_grown`` ends there."""
+                if not replay:
+                    return _grown(product, guess)
+                w = rl[key]
+                c, v, req = product(w)
+                checks.add(f"L{lev_id} {key} width", req,
+                           lambda r, g=guess, w=w: _grown_width(g, r) == w)
+                return c, v, req, w
 
-        P = EllMatrix(vals=pv, cols=pc, n_cols=nc_b)
-        P_store, Pt_store = P, EllMatrix(vals=tv, cols=tc, n_cols=n)
-        if transfer_dia and shifts is not None:
-            # stencil level: store the interpolation as fine-space
-            # diagonals (seq/transfer_dia.py). The offsets are probed in
-            # every setup: they depend on the grid.
-            from hypre_tpu_torch.seq.transfer_dia import (
-                build_transfer_dia, probe_transfer_offsets,
-            )
+            def a_times_p():
+                apc, apv, req, w = grow(
+                    lambda w: spgemm_slab(A_cur.cols, A_cur.vals, pc, pv, w,
+                                          shifts=shifts, chunks=ch_ap),
+                    guess_ap, "ap")
+                if ap_cap and ap_cap < w:
+                    apc, apv = cap_slab(apc, apv, ap_cap, lump_largest=True)
+                return apc, apv, req, w
 
-            def build():
-                offs = probe_transfer_offsets(pc, cf, nc_b)
-                return None if offs is None else \
-                    build_transfer_dia(P, cf, offs)
+            apc, apv, req_ap, out_ap = staged("AP", a_times_p)
+            tc, tv, req_t, out_t = staged("transpose", lambda: grow(
+                lambda w: transpose_slab(pc, pv, nc_b, w), guess_t, "t"))
+            ch_ac = _nchunks(nc_b, out_t * out_ap)
+            acc, acv, req_ac, out_ac = staged("RAP", lambda: grow(
+                lambda w: spgemm_slab(tc, tv, apc, apv, w, chunks=ch_ac),
+                guess_ac, "ac"))
+            if coarse_drop_tol > 0:
+                acc, acv = staged("drop", lambda: drop_and_lump(
+                    acc, acv, float(coarse_drop_tol)))
+            rowmax = (acc >= 0).sum(dim=1).max()
+            # stored widths: the bucket of each slab's true width
+            if replay:
+                tw, aw = rl["tw"], rl["aw"]
+                checks.add(f"L{lev_id} Pt width", req_t,
+                           lambda r, t=out_t, w=tw: _trim_width(r, t) == w)
+                checks.add(f"L{lev_id} coarse width", rowmax,
+                           lambda r, a=out_ac, w=aw: _trim_width(r, a) == w)
+            else:
+                rowmax = int(rowmax)
+                tw, aw = _trim_width(req_t, out_t), _trim_width(rowmax, out_ac)
+                log(f"L{lev_id} built: req_ap={req_ap} req_t={req_t} "
+                    f"req_ac={req_ac} rowmax={rowmax}")
+            updates.update({(lev_id, "p"): pc.shape[1], (lev_id, "mp"): mp,
+                            (lev_id, "ap"): out_ap, (lev_id, "t"): out_t,
+                            (lev_id, "ac"): out_ac})
+            tc, tv = _trim(tc, tv, tw)
+            acc, acv = _trim(acc, acv, aw)
 
-            T = staged("transfer_dia", build)
-            if T is not None:
-                P_store, Pt_store = T, None
-        log(f"L{lev_id} level stored (transfer_dia={Pt_store is None})")
-        levels.append(Level(A=A_cur, P=P_store, Pt=Pt_store, dinv=dinv,
-                            l1inv=l1inv, lmax=lmax, cf=cf.to(torch.int8)))
-        A_cur = EllMatrix(vals=acv, cols=acc, n_cols=nc_b)
-        n_true = n_coarse
-        true_sizes.append(n_true)
-        shifts = None  # coarse operators are unstructured
+            P = EllMatrix(vals=pv, cols=pc, n_cols=nc_b)
+            P_store, Pt_store = P, EllMatrix(vals=tv, cols=tc, n_cols=n)
+            T, offs = None, None
+            if transfer_dia and shifts is not None:
+                # stencil level: store the interpolation as fine-space
+                # diagonals (seq/transfer_dia.py). The offsets are probed
+                # in every setup: they depend on the grid.
+                def build_t():
+                    if not replay:
+                        offs = probe_transfer_offsets(pc, cf, nc_b)
+                        return (None if offs is None else
+                                build_transfer_dia(P, cf, offs)), offs
+                    offs = tuple(rl["tdia"])
+                    win = (rl["we"], rl["xe"], rl["wc"], rl["xc"])
+                    uniq = probe_offsets_device(pc, _c2f_from_cf(cf, nc_b))
+                    T, sc = build_transfer_dia(P, cf, offs,
+                                               known_windows=win)
+                    checks.add(f"L{lev_id} transfer offsets", uniq,
+                               _offsets_match(offs))
+                    checks.add(f"L{lev_id} transfer windows", sc,
+                               lambda v, n=n, nc=nc_b, w=win:
+                               windows_of(v, n, nc) == w)
+                    return T, offs
 
-    # coarsest level: dense inverse on the device (par_gauss_elim.c
-    # analogue; padding rows solved as identity), residual-checked with a
-    # pseudo-inverse retry for singular operators
-    def coarse():
-        inv, resid = _coarse_inv(A_cur.vals, A_cur.cols, n_true)
-        resid = float(resid)
-        if not (resid <= 1e-3):  # also catches a non-finite residual
-            inv, _ = _coarse_inv(A_cur.vals, A_cur.cols, n_true, pinv=True)
-        return inv
+                T, offs = staged("transfer_dia", build_t)
+                if T is None:
+                    complete = False  # the replay needs the TransferDia
+                else:
+                    P_store, Pt_store = T, None
+            log(f"L{lev_id} level stored (transfer_dia={T is not None})")
+            levels.append(Level(A=A_cur, P=P_store, Pt=Pt_store, dinv=dinv,
+                                l1inv=l1inv, lmax=lmax, cf=cf.to(torch.int8)))
+            recs.append(dict(
+                agg=int(aggressive), kA=int(kA), ncb=int(nc_b),
+                nc=int(n_coarse), out_k=0 if aggressive else int(out_k),
+                mp=int(mp), ap=int(out_ap), t=int(out_t), ac=int(out_ac),
+                chi=int(ch_i), chap=int(ch_ap), chac=int(ch_ac),
+                tw=int(tw), aw=int(aw),
+                tdia=None if T is None else [int(o) for o in offs],
+                we=0 if T is None else int(T.expand.W),
+                xe=0 if T is None else int(T.expand.n_xpad),
+                wc=0 if T is None else int(T.compress.W),
+                xc=0 if T is None else int(T.compress.n_xpad),
+                pmis=int(pm[0]), pmis2=int(pm[2])))
+            A_cur = EllMatrix(vals=acv, cols=acc, n_cols=nc_b)
+            n_true = n_coarse
+            true_sizes.append(n_true)
+            shifts = None  # coarse operators are unstructured
+        if replay and len(levels) != len(rec["levels"]):
+            return None, None, "the ladder has more levels"
 
-    inv = staged("coarse_inv", coarse)
-    return AMGHierarchy(levels=levels, coarse_inv=inv, galerkin=True,
-                        n_fine=n_fine,
-                        n_level_true=tuple(true_sizes) if row_bucket else ())
+        # coarsest level: dense inverse on the device (par_gauss_elim.c
+        # analogue; padding rows solved as identity), residual-checked
+        # with a pseudo-inverse retry for singular operators
+        def coarse():
+            inv, resid = _coarse_inv(A_cur.vals, A_cur.cols, n_true)
+            if replay:
+                got = {}
+                checks.add("coarse residual", resid,
+                           lambda r: got.update(r=r) or True)
+                why = checks.first_failure()
+                if why is not None:
+                    return None, why
+                resid = got["r"]
+            if not (float(resid) <= 1e-3):  # also catches a non-finite one
+                inv, _ = _coarse_inv(A_cur.vals, A_cur.cols, n_true,
+                                     pinv=True)
+            return inv, None
+
+        inv, why = staged("coarse_inv", coarse)
+        if why is not None:
+            return None, None, why
+        plan.update(updates)
+        hier = AMGHierarchy(
+            levels=levels, coarse_inv=inv, galerkin=True, n_fine=n_fine,
+            n_level_true=tuple(true_sizes) if row_bucket else (),
+            replayed=replay)
+        return hier, (recs if complete and recs else None), None
+
+    ksig = _knobs_sig(
+        th=strength_threshold, mrs=max_row_sum, ml=max_levels,
+        mcs=max_coarse_size, pme=p_max_elmts, tf=trunc_factor, rx=need_cheby,
+        crt=coarsen_rtol, sc=s_cap, apc=ap_cap, sym=symmetric,
+        agg=agg_num_levels, cdt=coarse_drop_tol, td=transfer_dia)
+    shape_sig = shape_key(A.n_rows, A.k, shifts_host)
+    if (row_bucket and stage_times is None
+            and os.environ.get("HYPRE_TPU_NO_FAST_SETUP") != "1"):
+        rec = _ladder_get(shape_sig, ksig)
+        if rec:
+            hier, _, why = build(rec)
+            if hier is not None:
+                log("fast-setup replay verified")
+                return hier
+            _LOG.warning("device setup: the recorded ladder of shape %s was "
+                         "rejected (%s); taking the slow path", shape_sig,
+                         why)
+    hier, recs, _ = build(None)
+    if row_bucket and recs:
+        _ladder_put(shape_sig, ksig, {"levels": recs})
+    return hier
 
 
 # ---------------------------------------------------------------------------
@@ -1037,6 +1289,12 @@ def second_pass_pmis(scols: torch.Tensor, cf1: torch.Tensor, n: int,
     strength stencil's offsets, and an edge exists per output offset when
     one of its path decompositions does (an OR of shifted ANDs, no gather).
     """
+    return _second_pass(scols, cf1, n, s2_cap, shifts)[0]
+
+
+def _second_pass(scols, cf1, n, s2_cap, shifts=None, rounds=None):
+    """``second_pass_pmis`` returning its PMIS's (cf, rounds, decided),
+    ``rounds`` as ``_pmis`` takes it."""
     ks = scols.shape[1]
     dev = scols.device
     shifts = _as_pack(shifts, n, with_d2=True)
@@ -1067,7 +1325,7 @@ def second_pass_pmis(scols: torch.Tensor, cf1: torch.Tensor, n: int,
             offs2.append(o)
         s2cols = torch.stack(cols_list, dim=1)
         sp2 = StencilPack(offs2, 2 * shifts.margin)
-        cf2 = pmis_device(s2cols, n, shifts=sp2)
+        cf2, done, decided = _pmis(s2cols, n, shifts=sp2, rounds=rounds)
     else:
         # pre-filter each row's strong slab to its C1 columns, THEN gather
         # those filtered rows: candidates are C1-only by construction
@@ -1083,12 +1341,12 @@ def second_pass_pmis(scols: torch.Tensor, cf1: torch.Tensor, n: int,
         s2cols, _, _ = merge_slab(
             cand_c1, torch.zeros(cand_c1.shape, dtype=torch.float32,
                                  device=dev), s2_cap)
-        cf2 = pmis_device(s2cols, n)
+        cf2, done, decided = _pmis(s2cols, n, rounds=rounds)
     # isolated C1 points (no strong C1 within distance 2) must stay C:
     # nothing can interpolate them otherwise
     iso_c1 = is_c1 & ~(s2cols >= 0).any(dim=1)
     cf = torch.where(is_c1 & (cf2 == C_PT), C_PT, F_PT)
-    return torch.where(iso_c1, C_PT, cf).to(torch.int32)
+    return torch.where(iso_c1, C_PT, cf).to(torch.int32), done, decided
 
 
 def multipass_interp_device(

@@ -83,6 +83,9 @@ class AMGHierarchy:
     # the shard mesh of a partitioned hierarchy (parallel/par_amg.py); on
     # a ``dist`` mesh the coarse solve gathers its right-hand side
     mesh: object = None
+    # True when the device setup built it by replaying a recorded ladder
+    # (amg/device_setup.py), False when it took the slow path
+    replayed: bool = False
 
     @property
     def num_levels(self) -> int:

@@ -45,6 +45,16 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def host_tensor(values, dtype, device) -> torch.Tensor:
+    """A small host sequence as a tensor on ``device``. To a card it goes
+    from pinned memory without waiting: a copy from pageable memory waits
+    for all the work queued before it, a read-back in all but name."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def tensors_to(obj, device):
     """Copy of a frozen dataclass (or list/tuple of them) with every tensor
     field moved to ``device``; non-tensor fields are kept as they are."""

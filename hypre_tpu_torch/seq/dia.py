@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from hypre_tpu_torch import kernels
-from hypre_tpu_torch.core.config import fold_sum, tensors_to
+from hypre_tpu_torch.core.config import fold_sum, host_tensor, tensors_to
 from hypre_tpu_torch.seq.ell import EllMatrix
 
 ALIGN = 1024  # margin granularity, kept from the reference's bucketing
@@ -104,8 +104,8 @@ class DiaMatrix:
                 )
             object.__setattr__(
                 self, "offsets",
-                torch.as_tensor(np.asarray(offs, np.int32),
-                                device=self.dvals.device),
+                host_tensor(np.asarray(offs, np.int32).tolist(), torch.int32,
+                            self.dvals.device),
             )
         elif self.margin == 0:
             raise ValueError(

@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from hypre_tpu_torch.core.config import fold_sum, tensors_to
+from hypre_tpu_torch.core.config import fold_sum, host_tensor, tensors_to
 from hypre_tpu_torch.seq.dia import DiaMatrix, _margin_for, _shift1d
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.fastmv import (
@@ -89,9 +89,15 @@ class TransferDia:
 
 def _c2f_from_cf(cf: torch.Tensor, nc: int) -> torch.Tensor:
     """Fine rows of the C points in coarse order, padded to ``nc`` entries
-    with the sentinel 2^30 (coarse rows beyond the true C count)."""
-    c2f = torch.nonzero(cf == _C_PT)[:, 0].to(torch.int32)[:nc]
-    return torch.cat([c2f, c2f.new_full((nc - c2f.shape[0],), _BIG)])
+    with the sentinel 2^30 (coarse rows beyond the true C count). One
+    scatter by the C points' coarse ids, no read-back: C points past
+    ``nc`` and the F points land in one spare slot that is cut off."""
+    is_c = cf == _C_PT
+    idx = torch.cumsum(is_c.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    dest = torch.where(is_c & (idx < nc), idx, nc).long()
+    rows = torch.arange(cf.shape[0], dtype=torch.int32, device=cf.device)
+    out = torch.full((nc + 1,), _BIG, dtype=torch.int32, device=cf.device)
+    return out.scatter_(0, dest, rows)[:nc]
 
 
 def _fine_diffs(pc: torch.Tensor, c2f: torch.Tensor):
@@ -105,12 +111,29 @@ def _fine_diffs(pc: torch.Tensor, c2f: torch.Tensor):
 
 def _distinct_offsets(pc, c2f, max_offsets: int):
     """Sorted distinct fine-space offsets of P as a host tuple, or None
-    when there are more than ``max_offsets``."""
+    when there are more than ``max_offsets``. One read-back."""
+    uniq = probe_offsets_device(pc, c2f, max_offsets + 1).cpu().tolist()
+    offs = tuple(int(o) for o in uniq if o < _BIG)
+    return None if len(offs) > max_offsets else offs
+
+
+PROBE_SLOTS = 97
+
+
+def probe_offsets_device(pc, c2f, slots: int = PROBE_SLOTS) -> torch.Tensor:
+    """The sorted distinct fine-space offsets of P in a (slots,) int32
+    device tensor, the sentinel 2^30 after the last one (the reference's
+    ``_probe_offsets_jit``). A sort and a scatter by rank, no read-back:
+    more than ``slots`` offsets leave no sentinel."""
     valid, diff = _fine_diffs(pc, c2f)
-    uniq = torch.unique(diff[valid])
-    if uniq.shape[0] > max_offsets:
-        return None
-    return tuple(int(o) for o in uniq.cpu().tolist())
+    s_ = torch.sort(torch.where(valid, diff, _BIG).reshape(-1))[0]
+    is_new = torch.ones_like(s_, dtype=torch.bool)
+    is_new[1:] = s_[1:] != s_[:-1]
+    is_new &= s_ < _BIG
+    rank = torch.cumsum(is_new.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    dest = torch.where(is_new & (rank < slots), rank, slots).long()
+    out = torch.full((slots + 1,), _BIG, dtype=torch.int32, device=pc.device)
+    return out.scatter_(0, dest, s_.to(torch.int32))[:slots]
 
 
 def probe_transfer_offsets(pc, cf, nc: int, max_offsets: int = 96):
@@ -121,18 +144,20 @@ def probe_transfer_offsets(pc, cf, nc: int, max_offsets: int = 96):
 
 
 def _planes_scatter(pc, pv, c2f, offs_p, D: int):
-    """Diagonal planes of P by one scatter over offset ids. A row holds
-    each column once, so the hit slots' (plane, row) destinations are all
-    different and each is written once."""
+    """Diagonal planes of P by one scatter-add over offset ids, every slot
+    taking part (no mask, so no read-back): a missed or invalid slot adds
+    0. A row holds each column once, so each (plane, row) gets at most one
+    value and the added zeros change nothing."""
     n, k = pc.shape
     dev = pc.device
-    offs_arr = torch.tensor(offs_p, dtype=torch.int32, device=dev)
+    offs_arr = host_tensor(list(offs_p), torch.int32, dev)
     valid, diff = _fine_diffs(pc, c2f)
     oid = torch.searchsorted(offs_arr, diff.contiguous()).clamp(0, D - 1)
     hit = valid & (offs_arr[oid] == diff)
     rows = torch.arange(n, device=dev)[:, None].expand(n, k)
     dvals = torch.zeros((D, n), dtype=pv.dtype, device=dev)
-    return dvals.index_put_((oid[hit], rows[hit]), pv[hit], accumulate=True)
+    return dvals.index_put_((oid, rows), torch.where(hit, pv, 0.0),
+                            accumulate=True)
 
 
 def _transpose_planes(dvals, offs):
@@ -149,7 +174,7 @@ def _pad_to(x, m: int, fill):
 
 
 def build_transfer_dia(P, cf, offs, exact: int = 0,
-                       max_window: int = 131072):
+                       max_window: int = 131072, known_windows=None):
     """TransferDia from P, the CF split and P's fine-space offsets
     (``probe_transfer_offsets``), or None when a selection's window
     exceeds ``max_window``.
@@ -160,13 +185,19 @@ def build_transfer_dia(P, cf, offs, exact: int = 0,
     Selection blocks: ``expand`` gathers from the coarse vector in blocks
     of 8192 rows, ``compress`` from the fine vector in blocks of 2048, as
     in the reference.
+
+    known_windows = (W_e, xe, W_c, xc): the selections' window widths and
+    padded lengths recorded by an earlier setup (the device setup's
+    replay). Nothing is read back then, and the result is ``(T, sc)``,
+    ``sc`` the four schedule scalars (expand's window and start, then
+    compress's) as a device tensor for the caller's deferred check.
     """
     from hypre_tpu_torch.amg.device_setup import _bucket
 
     if not isinstance(P, EllMatrix) or P.k < 1 or offs is None:
         return None
     n, nc = P.n_rows, P.n_cols
-    dtype, dev = P.dtype, P.device
+    dtype = P.dtype
     B_e, B_c = 8192, 2048
     D = _bucket(len(offs))
     offs_p = tuple(offs) + (offs[-1],) * (D - len(offs))
@@ -196,26 +227,37 @@ def build_transfer_dia(P, cf, offs, exact: int = 0,
     ev_t, el_t = _payload_impl(e_vals_p, e_cols_p, lo_e, B_e)
     lo_c, sc_c = _sched_impl(c_cols_p, B_c, n_pad_c)
     cv_t, cl_t = _payload_impl(c_vals_p, c_cols_p, lo_c, B_c)
-    wm_e, lm_e, wm_c, lm_c = (
-        int(v) for v in torch.cat([sc_e, sc_c]).cpu().tolist())
-    W_e, W_c = _wbucket(wm_e), _wbucket(wm_c)
-    if W_e > max_window or W_c > max_window:
-        return None
+    sc = torch.cat([sc_e, sc_c])
+    if known_windows is not None:
+        W_e, xe, W_c, xc = (int(v) for v in known_windows)
+    else:
+        W_e, xe, W_c, xc = windows_of(sc.cpu().tolist(), n, nc)
+        if W_e > max_window or W_c > max_window:
+            return None
     P_dia = DiaMatrix(dvals=dvals, offsets=offs_p, n_cols=n, margin=margin)
     Pt_dia = DiaMatrix(dvals=dvalsT, offsets=tuple(-o for o in offs_p),
                        n_cols=n, margin=margin)
     Eb = BandedEll(
         ell=EllMatrix(vals=e_vals, cols=e_cols, n_cols=nc),
-        vals_t=ev_t, lcols_t=el_t, starts=lo_e, W=W_e, B=B_e,
-        n_xpad=_xpad_bucket(max(lm_e + W_e, nc)),
+        vals_t=ev_t, lcols_t=el_t, starts=lo_e, W=W_e, B=B_e, n_xpad=xe,
         exact=exact, n_rows_s=n, n_cols_s=nc)
     Cb = BandedEll(
         ell=EllMatrix(vals=c_vals, cols=c_cols, n_cols=n),
-        vals_t=cv_t, lcols_t=cl_t, starts=lo_c, W=W_c, B=B_c,
-        n_xpad=_xpad_bucket(max(lm_c + W_c, n)),
+        vals_t=cv_t, lcols_t=cl_t, starts=lo_c, W=W_c, B=B_c, n_xpad=xc,
         exact=exact, n_rows_s=nc, n_cols_s=n)
-    return TransferDia(P_dia=P_dia, Pt_dia=Pt_dia, expand=Eb, compress=Cb,
-                       n_coarse_s=nc)
+    T = TransferDia(P_dia=P_dia, Pt_dia=Pt_dia, expand=Eb, compress=Cb,
+                    n_coarse_s=nc)
+    return T if known_windows is None else (T, sc)
+
+
+def windows_of(sc, n: int, nc: int) -> tuple:
+    """(W_e, xe, W_c, xc) that ``build_transfer_dia`` derives from the
+    four schedule scalars ``sc`` (host ints) of a P with ``n`` rows and
+    ``nc`` columns."""
+    wm_e, lm_e, wm_c, lm_c = (int(v) for v in sc)
+    W_e, W_c = _wbucket(wm_e), _wbucket(wm_c)
+    return (W_e, _xpad_bucket(max(lm_e + W_e, nc)),
+            W_c, _xpad_bucket(max(lm_c + W_c, n)))
 
 
 def try_transfer_dia(P, c2f, max_offsets: int = 96, exact: int = 0):

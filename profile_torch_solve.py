@@ -31,16 +31,25 @@ with, for the pure path at the top level and for the other two under
   and for ``amg.solve`` its iterations, warm wall times and one profiled
   call, as above.
 
+Every device setup it runs takes the slow path, whatever earlier runs
+recorded: it sets HYPRE_TPU_NO_FAST_SETUP=1 and a shape registry of its own
+in a temporary directory, and each timed setup's record says which path
+built it ("replayed"). The replay of a recorded setup is timed by
+time_device_setup.py.
+
 The object is also written to chiprun_out/profile_torch_solve.json. It
 imports nothing of JAX or of hypre_tpu.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -197,6 +206,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_solve: no CUDA device", file=sys.stderr)
         return 2
+    registry = tempfile.mkdtemp(prefix="profile_torch_registry_")
+    atexit.register(shutil.rmtree, registry, True)
+    os.environ["HYPRE_TPU_TORCH_SHAPE_REGISTRY"] = os.path.join(
+        registry, "shapes.json")
+    os.environ["HYPRE_TPU_NO_FAST_SETUP"] = "1"
     sys.path.insert(0, HERE)
     import hypre_tpu_torch as H
     from hypre_tpu_torch.amg import hierarchy as hmod
@@ -246,7 +260,7 @@ def main() -> int:
         H.setup_hierarchy_device(A, stage_times=stages, **kw)
         torch.cuda.synchronize()
         staged_total = time.perf_counter() - t0
-        plain_s = []
+        plain_s, replayed = [], []
         for _ in range(REPEATS):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -254,6 +268,7 @@ def main() -> int:
             dhier = H.setup_hierarchy_device(A, **kw)
             torch.cuda.synchronize()
             plain_s.append(time.perf_counter() - t0)
+            replayed.append(dhier.replayed)
         peak = torch.cuda.max_memory_allocated()
         sort_s = sort_seconds(H, torch, A, kw)
         d_solve, d_profile = solve_and_profile(H, torch, dhier, sm, b)
@@ -268,7 +283,8 @@ def main() -> int:
             "true_levels": list(dhier.n_level_true),
             "levels": [lv.A.n_rows for lv in dhier.levels]
             + [dhier.coarse_inv.shape[0]],
-            "setup": {"total_s": plain_s, "staged_total_s": staged_total,
+            "setup": {"total_s": plain_s, "replayed": replayed,
+                      "staged_total_s": staged_total,
                       "stages_s": stages, "sort_slab_s": sort_s,
                       "peak_bytes": peak},
             "solve": d_solve, "profile": d_profile,

@@ -15,8 +15,9 @@ from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "hypre_tpu_torch").rglob("*.py")) + \
+    sorted((ROOT / "examples_torch").glob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "profile_torch_solve.py",
-     ROOT / "multicard_smoke.py"]
+     ROOT / "multicard_smoke.py", ROOT / "time_device_setup.py"]
 
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
@@ -68,6 +69,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import hypre_tpu_torch.precond.par_sails\n"
         "import hypre_tpu_torch.parallel.amgdd\n"
         "import hypre_tpu_torch.struct.par_struct\n"
+        "import hypre_tpu_torch.warmup\n"
+        "sys.path.insert(0, 'examples_torch')\n"
+        "import run_all\n"
+        "for name in run_all.EXAMPLES: run_all.load(name)\n"
         "import multicard_smoke\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
@@ -104,7 +109,9 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "matrix_facade.py", "ij_mm.py", "comm.py", "mesh.py", "halo.py",
             "par_ell.py", "par_amg.py", "par_setup.py",
             "multihost.py", "par_ilu.py", "par_sails.py", "amgdd.py",
-            "par_struct.py", "multicard_smoke.py"} <= names
+            "par_struct.py", "multicard_smoke.py", "warmup.py",
+            "run_all.py", "ex5_ij_amg_pcg.py", "ex15_ams.py",
+            "ex18_sstruct_ndim.py"} <= names
     for rel in ("drivers/ij.py", "drivers/struct.py", "struct/hybrid.py",
                 "struct/io.py", "struct/__init__.py", "drivers/sstruct.py",
                 "sstruct/__init__.py", "sstruct/matrix.py",
