@@ -1,0 +1,9 @@
+"""Share of the roofline of the DIA kernels (``csrc/dia_spmv.cu``): the
+function bytes of the operators they applied over 3.35 TB/s, over their
+device time in the traced segment."""
+
+from harness.readers import roofline_share
+
+
+def read(run):
+    return roofline_share(run, "dia", "dia_")
