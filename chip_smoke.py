@@ -1695,14 +1695,18 @@ def uncounted(kernels, fn):
 
 
 def cuda_events(torch, prof) -> list:
-    """The card's events of a finished torch.profiler run, read from its
-    raw results: the events ``key_averages`` counts (hidden ones left
-    out), without the Python event it first builds for each, which cost
-    0.1-0.2 ms a kernel on the card's host (128 s of phase 13, whose
-    profiled solves run 10^4-10^5 kernels)."""
+    """The card's kernels, copies and sets of a finished torch.profiler
+    run, read from its raw results: the events ``key_averages`` counts
+    (hidden ones left out), without the Python event it first builds for
+    each, which cost 0.1-0.2 ms a kernel on the card's host (128 s of phase
+    13, whose profiled solves run 10^4-10^5 kernels). The program's spans
+    (``core/timing.py::annotate``) are left out: under CUDA activity each
+    is also a card event (``gpu_user_annotation``) that spans the kernels
+    inside it."""
     cuda = torch.autograd.DeviceType.CUDA
     return [e for e in prof.profiler.kineto_results.events()
             if e.device_type() == cuda
+            and not getattr(e, "is_user_annotation", lambda: False)()
             and not getattr(e, "is_hidden_event", lambda: False)()]
 
 

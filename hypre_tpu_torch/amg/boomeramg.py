@@ -35,6 +35,7 @@ from hypre_tpu_torch.amg.relax import max_eig_estimate_cg
 from hypre_tpu_torch.core.config import (
     ConvergenceInfo, make_convergence_info, resolve_device,
 )
+from hypre_tpu_torch.core.timing import annotate
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.vector import dot
 
@@ -152,57 +153,60 @@ class BoomerAMG:
         is: a warning when A's setup signature is new to the shape
         registry (``warmup.novel_shape_report``), the specialized solve
         (static DIA offsets) when its exact shape was seen before, and both
-        recorded on first sight."""
-        target = resolve_device(device)
-        spec = False
-        if self.setup_backend == "device":
-            spec = _prime(A)
-        if self.setup_backend == "device" or host_setup == "auto":
-            host_setup = False
-        if optimize == "auto":
-            optimize = target.type == "cuda"
-        where = torch.device("cpu") if host_setup else target
-        self._do_setup(A.to(where), where)
-        hier = self.ell_hierarchy = self.hierarchy
-        if optimize:
-            hier = optimize_hierarchy(
-                hier, prefer_pallas=True,
-                gather_precision=self.gather_precision,
-                specialize=self.specialize or spec, device=where)
-            if self.relax == "kaczmarz":
-                # its sweeps run A.mv_t on every level
-                hier = with_operator_transposes(hier)
-        hier = hier.to(target)
+        recorded on first sight. Under a recording profiler the setup is
+        the span ``amg.setup`` and the swap of formats ``amg.formats``."""
+        with annotate("amg.setup"):
+            target = resolve_device(device)
+            spec = False
+            if self.setup_backend == "device":
+                spec = _prime(A)
+            if self.setup_backend == "device" or host_setup == "auto":
+                host_setup = False
+            if optimize == "auto":
+                optimize = target.type == "cuda"
+            where = torch.device("cpu") if host_setup else target
+            self._do_setup(A.to(where), where)
+            hier = self.ell_hierarchy = self.hierarchy
+            if optimize:
+                with annotate("amg.formats"):
+                    hier = optimize_hierarchy(
+                        hier, prefer_pallas=True,
+                        gather_precision=self.gather_precision,
+                        specialize=self.specialize or spec, device=where)
+                    if self.relax == "kaczmarz":
+                        # its sweeps run A.mv_t on every level
+                        hier = with_operator_transposes(hier)
+            hier = hier.to(target)
 
-        cg_weights = self.relax == "jacobi" and self.relax_weight < 0
-        self._weight = 1.0 if cg_weights else self.relax_weight
-        if cg_weights:
-            # hypre's convention: relax_weight < 0 asks for per-level
-            # weights 1/lambda_max from |relax_weight| CG steps
-            # (par_cg_relax_wt.c:300); lev.rw carries them to both cycles.
-            # The reference overwrites the knob with 1.0 here, so that a
-            # second setup builds no weights.
-            steps = max(int(-self.relax_weight), 5)
-            hier = dataclasses.replace(hier, levels=[
-                dataclasses.replace(
-                    lev, rw=1.0 / max_eig_estimate_cg(lev.A, lev.dinv,
-                                                      steps)[0])
-                for lev in hier.levels])
-        if self.relax == "chebyshev" and self.cheby_eig_est > 0:
-            # the CG/Lanczos lambda_max replaces the power estimate
-            hier = dataclasses.replace(hier, levels=[
-                dataclasses.replace(
-                    lev, lmax=max_eig_estimate_cg(lev.A, lev.dinv,
-                                                  self.cheby_eig_est)[0])
-                for lev in hier.levels])
-        self.hierarchy = hier
-        self._transposed = False
-        self._smoother = make_smoother(
-            self.relax, self._weight, self.cheby_order,
-            self.cheby_ratio, relax_order=self.relax_order)
-        if self.smooth_type and self.smooth_num_levels > 0:
-            self._smoother = self._complex_smoothers(target)
-        return self
+            cg_weights = self.relax == "jacobi" and self.relax_weight < 0
+            self._weight = 1.0 if cg_weights else self.relax_weight
+            if cg_weights:
+                # hypre's convention: relax_weight < 0 asks for per-level
+                # weights 1/lambda_max from |relax_weight| CG steps
+                # (par_cg_relax_wt.c:300); lev.rw carries them to both cycles.
+                # The reference overwrites the knob with 1.0 here, so that a
+                # second setup builds no weights.
+                steps = max(int(-self.relax_weight), 5)
+                hier = dataclasses.replace(hier, levels=[
+                    dataclasses.replace(
+                        lev, rw=1.0 / max_eig_estimate_cg(lev.A, lev.dinv,
+                                                          steps)[0])
+                    for lev in hier.levels])
+            if self.relax == "chebyshev" and self.cheby_eig_est > 0:
+                # the CG/Lanczos lambda_max replaces the power estimate
+                hier = dataclasses.replace(hier, levels=[
+                    dataclasses.replace(
+                        lev, lmax=max_eig_estimate_cg(lev.A, lev.dinv,
+                                                      self.cheby_eig_est)[0])
+                    for lev in hier.levels])
+            self.hierarchy = hier
+            self._transposed = False
+            self._smoother = make_smoother(
+                self.relax, self._weight, self.cheby_order,
+                self.cheby_ratio, relax_order=self.relax_order)
+            if self.smooth_type and self.smooth_num_levels > 0:
+                self._smoother = self._complex_smoothers(target)
+            return self
 
     def _complex_smoothers(self, target: torch.device) -> list:
         """The per-level smoother list of smooth_type (the reference's

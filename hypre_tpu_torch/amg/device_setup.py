@@ -30,8 +30,6 @@ from __future__ import annotations
 
 import logging
 import os
-import sys
-import time
 from typing import List
 
 import torch
@@ -40,6 +38,7 @@ from hypre_tpu_torch.core.config import (
     PAD_COL, fold_sum, hash_rand01, resolve_device,
 )
 from hypre_tpu_torch.core.memory import check_hbm_request
+from hypre_tpu_torch.core.timing import annotate
 from hypre_tpu_torch.seq.ell import EllMatrix
 from hypre_tpu_torch.seq.slabops import (
     StencilPack, _where_col, _where_val, cap_slab, compact_mask_slab,
@@ -910,7 +909,6 @@ def setup_hierarchy_device(
     transfer_dia: bool = False,
     row_bucket: bool = True,
     device=None,
-    stage_times: dict | None = None,
 ):
     """Device-resident BoomerAMG setup: PMIS + ext+i (or, on the first
     ``agg_num_levels`` levels, the distance-2 second PMIS pass + multipass
@@ -942,9 +940,13 @@ def setup_hierarchy_device(
     hierarchy's ``replayed`` says which path built it, and a rejected
     replay is logged. ``HYPRE_TPU_NO_FAST_SETUP=1`` turns the replay off
     (the ladder is still recorded).
-    stage_times: when a dict, host seconds per setup stage are added to it
-    (each stage bracketed by a device synchronize, which slows the setup).
-    Such a setup always takes the slow path, whose stages these are.
+
+    Under a recording ``torch.profiler`` the setup shows as spans
+    (``core/timing.py::annotate``): ``setup.replay`` around a replay
+    attempt, ``setup.slow`` around the slow path (after a rejected attempt
+    too), and inside either ``setup.L<l>.<stage>`` for each stage of level
+    l (split, vectors, interp, ap, transpose, rap, drop, transfer_dia) and
+    ``setup.coarse_inv``.
     """
     from hypre_tpu_torch.amg.hierarchy import AMGHierarchy, Level
     from hypre_tpu_torch.seq.transfer_dia import (
@@ -953,29 +955,12 @@ def setup_hierarchy_device(
     )
     from hypre_tpu_torch.warmup import shape_key
 
-    log_on = bool(os.environ.get("HYPRE_TPU_LOG_SETUP"))
-    t_start = time.perf_counter()
-
-    def log(msg):
-        if log_on:
-            print(f"[setup +{time.perf_counter() - t_start:7.2f}s] {msg}",
-                  file=sys.stderr, flush=True)
-
     device = resolve_device(device)
     A = A.to(device)
 
     def staged(name, fn):
-        if stage_times is None:
+        with annotate(f"setup.{name}"):
             return fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        stage_times[name] = stage_times.get(name, 0.0) \
-            + time.perf_counter() - t0
-        return out
 
     # the fine level keeps ~4 slab-sized copies alive through the split
     # and interpolation merges
@@ -993,7 +978,6 @@ def setup_hierarchy_device(
             # padded rows are empty, so the shifts annotation still holds
             # at every VALID slot and the fine level keeps its DIA kernels
             A = EllMatrix(vals=pv_, cols=pc_, n_cols=nb, shifts=shifts_host)
-            log(f"row bucket: {n_fine} -> {nb}")
     shifts0 = None
     if shifts_host is not None:
         shifts0 = make_stencil_pack(shifts_host, A.n_rows, with_d2=True)
@@ -1038,7 +1022,8 @@ def setup_hierarchy_device(
                 cmap, n_c = _coarse_map(cf)
                 return scols, svals, sback, cf, cmap, n_c, (r1, d1, r2, d2)
 
-            scols, svals, sback, cf, cmap, n_c, pm = staged("split", split)
+            scols, svals, sback, cf, cmap, n_c, pm = staged(
+                f"L{lev_id}.split", split)
             if replay:
                 n_coarse = rl["nc"]
                 checks.add(f"L{lev_id} coarse size", n_c,
@@ -1055,10 +1040,8 @@ def setup_hierarchy_device(
                 # replay only has to stay in bounds until then
                 cmap = _where_col(cmap < nc_b, cmap)
             dinv, l1inv, lmax = staged(
-                "vectors",
+                f"L{lev_id}.vectors",
                 lambda: _level_vectors(A_cur.vals, A_cur.cols, need_cheby))
-            log(f"L{lev_id} split done: n={n} -> n_c={n_coarse} "
-                f"(bucket {nc_b}, agg={aggressive}, replay={replay})")
             if n_coarse == 0 or n_coarse >= coarsen_rtol * n_true:
                 complete = False  # a loop ended by a stall is not recorded
                 break
@@ -1117,7 +1100,7 @@ def setup_hierarchy_device(
                     back_hat=back_hat, chunks=ch_i)
                 return (*remap_fine_to_coarse(pc, pv, cmap), mp)
 
-            pc, pv, mp = staged("interp", interp)
+            pc, pv, mp = staged(f"L{lev_id}.interp", interp)
             ch_ap = _nchunks(n, kA * (kP or out_k))
 
             def grow(product, guess, key):
@@ -1140,15 +1123,16 @@ def setup_hierarchy_device(
                     apc, apv = cap_slab(apc, apv, ap_cap, lump_largest=True)
                 return apc, apv, req, w
 
-            apc, apv, req_ap, out_ap = staged("AP", a_times_p)
-            tc, tv, req_t, out_t = staged("transpose", lambda: grow(
-                lambda w: transpose_slab(pc, pv, nc_b, w), guess_t, "t"))
+            apc, apv, req_ap, out_ap = staged(f"L{lev_id}.ap", a_times_p)
+            tc, tv, req_t, out_t = staged(
+                f"L{lev_id}.transpose", lambda: grow(
+                    lambda w: transpose_slab(pc, pv, nc_b, w), guess_t, "t"))
             ch_ac = _nchunks(nc_b, out_t * out_ap)
-            acc, acv, req_ac, out_ac = staged("RAP", lambda: grow(
+            acc, acv, req_ac, out_ac = staged(f"L{lev_id}.rap", lambda: grow(
                 lambda w: spgemm_slab(tc, tv, apc, apv, w, chunks=ch_ac),
                 guess_ac, "ac"))
             if coarse_drop_tol > 0:
-                acc, acv = staged("drop", lambda: drop_and_lump(
+                acc, acv = staged(f"L{lev_id}.drop", lambda: drop_and_lump(
                     acc, acv, float(coarse_drop_tol)))
             rowmax = (acc >= 0).sum(dim=1).max()
             # stored widths: the bucket of each slab's true width
@@ -1161,8 +1145,6 @@ def setup_hierarchy_device(
             else:
                 rowmax = int(rowmax)
                 tw, aw = _trim_width(req_t, out_t), _trim_width(rowmax, out_ac)
-                log(f"L{lev_id} built: req_ap={req_ap} req_t={req_t} "
-                    f"req_ac={req_ac} rowmax={rowmax}")
             updates.update({(lev_id, "p"): pc.shape[1], (lev_id, "mp"): mp,
                             (lev_id, "ap"): out_ap, (lev_id, "t"): out_t,
                             (lev_id, "ac"): out_ac})
@@ -1193,12 +1175,11 @@ def setup_hierarchy_device(
                                windows_of(v, n, nc) == w)
                     return T, offs
 
-                T, offs = staged("transfer_dia", build_t)
+                T, offs = staged(f"L{lev_id}.transfer_dia", build_t)
                 if T is None:
                     complete = False  # the replay needs the TransferDia
                 else:
                     P_store, Pt_store = T, None
-            log(f"L{lev_id} level stored (transfer_dia={T is not None})")
             levels.append(Level(A=A_cur, P=P_store, Pt=Pt_store, dinv=dinv,
                                 l1inv=l1inv, lmax=lmax, cf=cf.to(torch.int8)))
             recs.append(dict(
@@ -1254,18 +1235,18 @@ def setup_hierarchy_device(
         crt=coarsen_rtol, sc=s_cap, apc=ap_cap, sym=symmetric,
         agg=agg_num_levels, cdt=coarse_drop_tol, td=transfer_dia)
     shape_sig = shape_key(A.n_rows, A.k, shifts_host)
-    if (row_bucket and stage_times is None
-            and os.environ.get("HYPRE_TPU_NO_FAST_SETUP") != "1"):
+    if row_bucket and os.environ.get("HYPRE_TPU_NO_FAST_SETUP") != "1":
         rec = _ladder_get(shape_sig, ksig)
         if rec:
-            hier, _, why = build(rec)
+            with annotate("setup.replay"):
+                hier, _, why = build(rec)
             if hier is not None:
-                log("fast-setup replay verified")
                 return hier
             _LOG.warning("device setup: the recorded ladder of shape %s was "
                          "rejected (%s); taking the slow path", shape_sig,
                          why)
-    hier, recs, _ = build(None)
+    with annotate("setup.slow"):
+        hier, recs, _ = build(None)
     if row_bucket and recs:
         _ladder_put(shape_sig, ksig, {"levels": recs})
     return hier

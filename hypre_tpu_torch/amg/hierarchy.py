@@ -45,6 +45,7 @@ from hypre_tpu_torch.amg.relax import (
 from hypre_tpu_torch.amg.strength import strength_mask
 from hypre_tpu_torch import native
 from hypre_tpu_torch.core.config import PAD_COL, resolve_device, tensors_to
+from hypre_tpu_torch.core.timing import annotate
 from hypre_tpu_torch.seq.dia import DiaMatrix, compact_dia
 from hypre_tpu_torch.seq.ell import EllMatrix, _np_dtype
 from hypre_tpu_torch.seq.fastmv import BandedEll, banded_spmv_t, \
@@ -456,13 +457,21 @@ def amg_cycle(
     cycle_type: int = 1,
 ) -> torch.Tensor:
     """One multigrid cycle (V for cycle_type=1, W for 2, F for 3;
-    par_cycle.c:23). ``smoother`` may be a list of per-level callables."""
+    par_cycle.c:23). ``smoother`` may be a list of per-level callables.
+    Under a recording profiler the cycle is the span ``amg.cycle``, each
+    level visit ``amg.L<l>`` (nested as the visits are) and the coarsest
+    solve ``amg.coarse`` (hypre's ``HYPRE_ANNOTATE_MGLEVEL_*`` regions)."""
     smoother = smoother or make_smoother("l1-jacobi", 1.0, 2, 0.3)
     per_level = isinstance(smoother, (list, tuple))
 
     def descend(level: int, f, u, ctype: int):
         if level == len(hier.levels):
-            return coarse_solve(hier, f)
+            with annotate("amg.coarse"):
+                return coarse_solve(hier, f)
+        with annotate(f"amg.L{level}"):
+            return visit(level, f, u, ctype)
+
+    def visit(level: int, f, u, ctype: int):
         lev = hier.levels[level]
         sm = smoother[level] if per_level else smoother
         for _ in range(num_sweeps):
@@ -484,9 +493,10 @@ def amg_cycle(
             u = sm(lev, u, f)
         return u
 
-    f, u, unpad = _pad_in(hier, f, u)
-    out = descend(0, f, u, cycle_type)
-    return out[:unpad] if unpad else out
+    with annotate("amg.cycle"):
+        f, u, unpad = _pad_in(hier, f, u)
+        out = descend(0, f, u, cycle_type)
+        return out[:unpad] if unpad else out
 
 
 def amg_cycle_t(

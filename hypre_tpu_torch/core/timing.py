@@ -9,7 +9,9 @@ behind ``hypre_InitializeTiming`` / ``hypre_BeginTiming``
   wraps device work synchronizes first, so that asynchronous launches do
   not hide the cost (a no-op for CPU tensors);
 - ``annotate`` marks a region for ``torch.profiler`` traces
-  (``record_function``), as ``HYPRE_ANNOTATE_MGLEVEL_BEGIN`` does;
+  (``record_function``), as ``HYPRE_ANNOTATE_FUNC`` and
+  ``HYPRE_ANNOTATE_MGLEVEL_BEGIN`` do. It costs a check of one flag when
+  no profiler records, and it never synchronizes;
 - ``device_memory_report`` reads the CUDA caching allocator's counters.
 """
 
@@ -80,12 +82,21 @@ class TimerRegistry:
 GLOBAL_TIMERS = TimerRegistry()
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Region annotation visible in torch.profiler traces
-    (HYPRE_ANNOTATE_* analogue)."""
-    with torch.profiler.record_function(name):
-        yield
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A span named ``name`` in the trace of a recording
+    ``torch.profiler`` (HYPRE_ANNOTATE_* analogue): ``record_function``
+    while a profiler records, else one shared no-op context. The port's
+    spans: ``amg.setup`` and ``amg.formats`` (``BoomerAMG.setup``);
+    ``setup.replay``, ``setup.slow``, ``setup.L<l>.<stage>`` and
+    ``setup.coarse_inv`` (``setup_hierarchy_device``); ``amg.cycle``,
+    ``amg.L<l>`` and ``amg.coarse`` (``amg_cycle``); ``pcg.solve`` and
+    ``pcg.iter`` (``pcg``)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def device_memory_report(device=None) -> str:

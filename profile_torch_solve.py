@@ -12,10 +12,12 @@ with, for the pure path at the top level and for the other two under
 "device_setup":
 
 - setup: host seconds per setup stage (each stage bracketed by
-  torch.cuda.synchronize()), summed over levels; for the device setup also
-  the seconds of a warm setup without the stage brackets, and the seconds
-  of its slab sorts (every ``sort_slab`` call bracketed the same way, in a
-  run of its own);
+  torch.cuda.synchronize()), summed over levels; for the device setup
+  instead its stage spans from one profiled setup (device ms launched
+  inside each ``setup.L<l>.<stage>`` span and its host ms), the seconds
+  of warm setups without a profiler, and the seconds of its slab sorts
+  (every ``sort_slab`` call bracketed by a synchronize, in a run of its
+  own);
 - solve: warm solve seconds (host clock after synchronize) for the dynamic
   and the specialized DIA kernel, in turns, REPEATS times each, and the
   seconds of ``optimize_hierarchy`` (formats, transpose schedules, row-list
@@ -84,6 +86,37 @@ def sort_seconds(H, torch, A, kw) -> dict:
     return spent
 
 
+def stage_spans(torch, fn) -> tuple[dict, float]:
+    """One call of ``fn`` (a device setup) under torch.profiler: for each
+    of its stage spans (``setup.L<l>.<stage>``, ``setup.coarse_inv``) the
+    device ms of the work launched inside it and the host ms it lasted;
+    and the call's host seconds, which the profiler slows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        us = getattr(e, "device_time_total", None)
+        return getattr(e, "cuda_time_total", 0.0) if us is None else us
+
+    stages = {}
+    for e in prof.events():
+        if not e.name.startswith(("setup.L", "setup.coarse_inv")):
+            continue
+        got = stages.setdefault(e.name, {"device_ms": 0.0, "host_ms": 0.0})
+        # the ops inside the span: the span's own device entry is the
+        # range of those same kernels, and would count them twice
+        got["device_ms"] += sum(map(device_us, e.cpu_children)) / 1e3
+        got["host_ms"] += e.cpu_time_total / 1e3
+    return stages, wall
+
+
 def tile_occupancy(torch, M, tiles=(8, 32, 128, 256)) -> dict:
     """Share of (plane, row tile) pairs of a DIA operator's planes that
     hold any nonzero, per tile height: the part of the planes a kernel
@@ -137,6 +170,27 @@ def solve_and_profile(H, torch, hier, sm, b):
         device_profile(torch, lambda: solve(True), min(times[True])))
 
 
+def kernel_times(torch, averages) -> list:
+    """(name, device ms, launches) of each kernel, copy and set in a
+    profile's ``key_averages``, longest first. Device-side entries only:
+    an aten op's self device time repeats the time of the kernels it
+    launched. The program's spans (``core/timing.py::annotate``) are left
+    out too: under CUDA activity each is also a device-side entry
+    (``gpu_user_annotation``) whose time is that of the kernels inside
+    it, so nested spans would count a kernel once per enclosing span."""
+    per_kernel = []
+    for e in averages:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            per_kernel.append((e.key, dev_us / 1e3, e.count))
+    return sorted(per_kernel, key=lambda t: -t[1])
+
+
 def device_profile(torch, fn, warm_s: float) -> dict:
     """One call of ``fn`` under torch.profiler: device time per kernel
     name (top 15), total device time, and the device busy share (device
@@ -151,18 +205,7 @@ def device_profile(torch, fn, warm_s: float) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    per_kernel = []
-    for e in prof.key_averages():
-        # device-side events only: an aten op's self device time repeats
-        # the time of the kernels it launched
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            per_kernel.append((e.key, dev_us / 1e3, e.count))
-    per_kernel.sort(key=lambda t: -t[1])
+    per_kernel = kernel_times(torch, prof.key_averages())
     device_ms = sum(t[1] for t in per_kernel)
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (warm_s * 1e3),
@@ -254,12 +297,8 @@ def main() -> int:
     for tdia in (True, False):
         kw = dict(BENCH_KW, transfer_dia=tdia)
         H.setup_hierarchy_device(A, **kw)  # warm-up
-        stages = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        H.setup_hierarchy_device(A, stage_times=stages, **kw)
-        torch.cuda.synchronize()
-        staged_total = time.perf_counter() - t0
+        stages, profiled_total = stage_spans(
+            torch, lambda: H.setup_hierarchy_device(A, **kw))
         plain_s, replayed = [], []
         for _ in range(REPEATS):
             torch.cuda.synchronize()
@@ -284,8 +323,8 @@ def main() -> int:
             "levels": [lv.A.n_rows for lv in dhier.levels]
             + [dhier.coarse_inv.shape[0]],
             "setup": {"total_s": plain_s, "replayed": replayed,
-                      "staged_total_s": staged_total,
-                      "stages_s": stages, "sort_slab_s": sort_s,
+                      "profiled_total_s": profiled_total,
+                      "stages_ms": stages, "sort_slab_s": sort_s,
                       "peak_bytes": peak},
             "solve": d_solve, "profile": d_profile,
             "tile_occupancy": occupancy}

@@ -28,6 +28,7 @@ import hypre_tpu_torch as H
 from hypre_tpu_torch.amg import device_setup as TD
 from hypre_tpu_torch.convert import ell_from_numpy
 from torch_one_thread import one_torch_thread  # noqa: F401
+from torch_spans import span_paths
 
 
 RTOL = 1e-12
@@ -543,12 +544,11 @@ def test_stage_times_and_memory_guard():
     from hypre_tpu_torch.core import memory
 
     _, tA, _, _, _ = built("5pt-10x9-bucket")
-    stages = {}
-    H.setup_hierarchy_device(tA, device="cpu", max_coarse_size=20,
-                             stage_times=stages)
-    assert {"split", "interp", "AP", "transpose", "RAP",
-            "coarse_inv"} <= set(stages)
-    assert all(v >= 0 for v in stages.values())
+    _, paths = span_paths(lambda: H.setup_hierarchy_device(
+        tA, device="cpu", max_coarse_size=20))
+    assert {("setup.slow", f"setup.L0.{stage}") for stage in (
+        "split", "interp", "ap", "transpose", "rap")} \
+        | {("setup.slow", "setup.coarse_inv")} <= set(paths)
     # on a CPU device there is no budget and the guard passes
     assert memory.hbm_bytes_limit("cpu") == 0
     assert memory.hbm_bytes_free("cpu") == 0

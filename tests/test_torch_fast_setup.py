@@ -22,6 +22,7 @@ import hypre_tpu_torch as H
 from hypre_tpu_torch import warmup
 from hypre_tpu_torch.amg import device_setup as TD
 from torch_one_thread import one_torch_thread  # noqa: F401
+from torch_spans import span_paths
 
 KW = dict(device="cpu", max_coarse_size=60, relax="chebyshev")
 CASES = {
@@ -164,14 +165,12 @@ def test_recorded_pt_width_below_the_need_is_rejected(twice, caplog):
 def test_no_fast_setup_takes_the_slow_path(twice, monkeypatch):
     kw = CASES["5pt-40-no-shifts"]
     monkeypatch.setenv("HYPRE_TPU_NO_FAST_SETUP", "1")
-    got = TD.setup_hierarchy_device(operator("5pt-40-no-shifts"), **KW, **kw)
+    # the stage spans lie in the slow path's span: no replay was tried
+    got, paths = span_paths(lambda: TD.setup_hierarchy_device(
+        operator("5pt-40-no-shifts"), **KW, **kw))
     assert not got.replayed
-    monkeypatch.delenv("HYPRE_TPU_NO_FAST_SETUP")
-    # stage_times brackets the slow path's stages: no replay either
-    stages = {}
-    got = TD.setup_hierarchy_device(operator("5pt-40-no-shifts"), **KW,
-                                    stage_times=stages, **kw)
-    assert not got.replayed and stages["split"] > 0
+    assert ("setup.slow", "setup.L0.split") in paths
+    assert not any("setup.replay" in p for p in paths)
     assert differences(got, twice["5pt-40-no-shifts"][0]) == []
 
 
